@@ -1,0 +1,376 @@
+"""mltps — the end-to-end ensemble + thin-plate-spline downscaling pipeline.
+
+Counterpart of ``machisplin_tpu/pipeline/mltps.py`` (the reference's
+``machisplin.mltps``, V73:114-968):
+
+part 0  LONG/LAT bands appended to the covariate stack, stack values taken at
+        the stations, NA rows dropped (V73:123-195);
+part 1  10-fold CV of the algorithm pool and the 0-1 weight search with the
+        rounded-weight > 5 % keep rule (V73:204-429);
+part 2  final fits of the kept algorithms on all rows, weighted raster
+        prediction streamed over the grid in row blocks, weighted station
+        residuals, variable importance (V73:430-631);
+part 3  thin-plate spline of the ensemble residuals on 1500-px tiles with
+        +-20 % fit / +-2.5 % mosaic overlaps, <10-point tiles as zero
+        surfaces (V73:636-753), all tiles solved in one batched masked
+        factorisation and predicted by the TPS grid kernel (K1);
+part 4  linear-ramp feathering of the tile seams (V73:756-896);
+part 5  final = ensemble + error surface, station R^2, and the keep-the-
+        correction-only-if-R^2-improves rule (V73:898-965).
+
+This slice ports the GAM (``g``) and MARS (``m``) letters; any other letter
+in the pool raises NotImplementedError naming the slice that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..ensemble.cv import CVConfig, require_ported, residual_matrix, run_cv
+from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb
+from ..grid import GridSpec, Raster, crop, extract, lonlat_rasters, stack
+from ..models import gam, mars
+from ..models.base import LETTER_TO_NAME
+from ..ops.feather import feather_blend
+from ..ops.tps import TPSModel, tps_fit, tps_predict_grid
+from ..parallel.tiles import batched_tile_solve, pack_tiles
+from ..utils import resolve_device
+from ..utils.timing import PhaseTimer
+
+log = logging.getLogger("machisplin_tpu_torch")
+
+SMOOTH_LETTERS = "gnmv"  # BRT and RF excluded under smooth.outputs.only (V73:366-393)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLTPSConfig:
+    """Pipeline hyperparameters; defaults mirror the reference call sites."""
+
+    cv: CVConfig = dataclasses.field(default_factory=CVConfig)
+    final_mars: dict = dataclasses.field(default_factory=dict)
+    final_gam: dict = dataclasses.field(default_factory=dict)
+    tps_tile_px: int = 1500          # V73:656-660
+    tps_fit_overlap: float = 0.2     # V73:673
+    tps_mosaic_overlap: float = 0.025  # V73:680
+    min_tile_points: int = 10        # V73:710
+    tps_tile_chunk: int = 16         # tiles factorised per batched solve
+    letters_pool: str | None = None  # restrict the algorithm pool (extension)
+    predict_block_rows: int = 256
+
+
+@dataclasses.dataclass
+class LayerResult:
+    """Per-response output, the reference's omega[[i]] contract (V73:955)."""
+
+    name: str
+    final: Raster
+    residuals: np.ndarray           # (n, 3) residual, long, lat (V73:627/914)
+    var_imp: dict[str, Any]
+    summary: dict[str, Any]
+    n_layers: int
+    ensemble: Raster | None = None  # pre-correction ensemble surface
+    tps_surface: Raster | None = None
+    weights: WeightResult | None = None
+
+
+def predict_over_stack(predict_fn, rast_stack: Raster, block_rows: int = 256, out_cols: int | None = None):
+    """Stream model prediction over the grid in row blocks -> (H, W), or
+    (H, W, R) when ``predict_fn`` returns (m, R) (``out_cols`` = R).
+
+    Replaces terra::predict(rast_stack, model) (V73:468/497/521/543/582/604).
+    Cells with any NaN covariate predict NaN."""
+    c, h, w = rast_stack.data.shape
+    data = rast_stack.data
+    nan = torch.full((), float("nan"), dtype=data.dtype, device=data.device)
+    rows = []
+    for r0 in range(0, h, block_rows):
+        blk = data[:, r0 : r0 + block_rows, :]
+        x = blk.movedim(0, -1).reshape(-1, c)
+        ok = torch.isfinite(x).all(dim=1)
+        pred = predict_fn(torch.where(ok[:, None], x, torch.zeros((), dtype=x.dtype, device=x.device)))
+        pred = torch.where(ok[:, None] if out_cols is not None else ok, pred, nan)
+        shape = (blk.shape[1], w) if out_cols is None else (blk.shape[1], w, out_cols)
+        rows.append(pred.reshape(shape))
+    return torch.cat(rows, dim=0)
+
+
+def _prepare_inputs(int_values, covar_ras: Raster):
+    """Part 0: stack assembly + station extraction (V73:123-195)."""
+    arr = np.asarray(int_values)
+    if not arr.dtype.names:
+        raise ValueError(
+            "int_values must be a structured array with named columns (long, lat, <responses...>)"
+        )
+    names = list(arr.dtype.names)
+    cols = np.stack([arr[n] for n in names], axis=1).astype(np.float64)
+    if names[0].lower() not in ("long", "lon", "x") or names[1].lower() not in ("lat", "y"):
+        log.warning("first two columns expected to be long, lat; got %s", names[:2])
+    resp_names = names[2:]
+    g = covar_ras.grid
+    rast_stack = stack([covar_ras, lonlat_rasters(g, covar_ras.data.dtype, covar_ras.data.device)])
+    vals = extract(rast_stack, cols[:, 0], cols[:, 1]).cpu().numpy().astype(np.float64)  # (n, C+2)
+    full = np.concatenate([cols, vals], axis=1)
+    keep = np.all(np.isfinite(full), axis=1)
+    if keep.mean() < 0.75:
+        log.warning(
+            "Warning! %d points fell outside of input co-variate rasters (of %d total input). "
+            "Consider using co-variates that match the full extent of the input data",
+            int((~keep).sum()), len(keep),
+        )
+    full = full[keep]
+    x = full[:, len(names):]                 # station covariates (incl LONG, LAT)
+    responses = {rn: full[:, 2 + i] for i, rn in enumerate(resp_names)}
+    return rast_stack, list(rast_stack.names), full[:, :2], x, responses
+
+
+def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig):
+    """Final-fit one algorithm for SEVERAL responses (ycols (n, R)) in one
+    batched call.  Returns (predict_fn (m, p) -> (m, R), [importance dicts])."""
+    n_resp = ycols.shape[1]
+    y_b = ycols.T.contiguous()
+    if letter == "g":
+        states = gam.fit(x, y_b, **config.final_gam)
+        fn = lambda q: gam.predict(states, q).T
+        imps = [gam.importance(gam.GAMState(*(a[j] for a in states)), names) for j in range(n_resp)]
+        return fn, imps
+    if letter == "m":
+        states = mars.fit(x, y_b, **config.final_mars)
+        fn = lambda q: mars.predict(states, q).T
+        imps = [
+            mars.importance(mars.MARSState(*(a[j] for a in states)), x, ycols[:, j], names)
+            for j in range(n_resp)
+        ]
+        return fn, imps
+    require_ported(letter)
+    raise ValueError(letter)
+
+
+def _tps_tiles(grid: GridSpec, config: MLTPSConfig):
+    """The reference's auto-tiling plan: fit extents (+-20%) and mosaic
+    extents (+-2.5%) for ceil(n/1500)-per-axis blocks, row-major from the
+    bottom-left (V73:650-681)."""
+    n_rx = -(-grid.nrows // config.tps_tile_px)
+    n_cx = -(-grid.ncols // config.tps_tile_px)
+    xmin, xmax, ymin, ymax = grid.extent
+    long_d = (xmax - xmin) / n_cx
+    lat_d = (ymax - ymin) / n_rx
+    fo, mo = config.tps_fit_overlap, config.tps_mosaic_overlap
+    fit_exts, mosaic_exts = [], []
+    for j in range(1, n_rx + 1):
+        for h in range(1, n_cx + 1):
+            fit_exts.append((
+                xmin + long_d * (h - 1) - long_d * fo,
+                xmin + long_d * h + long_d * fo,
+                ymin + lat_d * (j - 1) - lat_d * fo,
+                ymin + lat_d * j + lat_d * fo,
+            ))
+            mosaic_exts.append((
+                xmin + long_d * (h - 1) - long_d * mo,
+                xmin + long_d * h + long_d * mo,
+                ymin + lat_d * (j - 1) - lat_d * mo,
+                ymin + lat_d * j + lat_d * mo,
+            ))
+    return n_rx, n_cx, fit_exts, mosaic_exts
+
+
+def _tps_error_surface(coords, res_mat, rast_stack: Raster, config: MLTPSConfig):
+    """Parts 3+4: tiled TPS of the residuals, feathered into one surface.
+
+    ``res_mat`` is (n, R): every response solves through one factorisation
+    per tile (the station coordinates are shared).  Returns (a Raster with
+    data (R, H, W), the tile count)."""
+    grid = rast_stack.grid
+    n_rx, n_cx, fit_exts, mosaic_exts = _tps_tiles(grid, config)
+    n_tiles = n_rx * n_cx
+    dtype, dev = rast_stack.data.dtype, rast_stack.data.device
+    res_mat = np.asarray(res_mat)
+
+    if n_tiles == 1:
+        model = tps_fit(
+            torch.as_tensor(coords, dtype=dtype, device=dev), torch.as_tensor(res_mat, dtype=dtype, device=dev)
+        )
+        surf = tps_predict_grid(model, grid).to(dtype)
+        return Raster(surf.movedim(-1, 0), grid), n_tiles
+
+    first_layer = rast_stack.band(0)
+    crops = [crop(first_layer, fit_exts[h]) for h in range(n_tiles)]
+    # stations inside the fit extent with a valid first covariate (V73:701-706)
+    sels = [torch.isfinite(extract(rb, coords[:, 0], coords[:, 1])).cpu().numpy() for rb in crops]
+    surfs = _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev)
+    tiles = [crop(s, mosaic_exts[h]) for h, s in enumerate(surfs)]
+    return feather_blend(tiles, n_rx, n_cx, grid), n_tiles
+
+
+def _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev):
+    """All live TPS tiles as batched masked factorisations (one knot budget)
+    and one grid prediction per tile; tiles below the <10-point threshold
+    become zero surfaces (V73:710-721).  Each Raster carries (R, rows, cols)."""
+    n_resp = res_mat.shape[1]
+    n_tiles = len(crops)
+    live = [h for h in range(n_tiles) if int(sels[h].sum()) >= config.min_tile_points]
+    surfs: list = [None] * n_tiles
+    for h in range(n_tiles):
+        if h not in live:
+            log.info("tile %d: %d points -> zero surface", h + 1, int(sels[h].sum()))
+            surfs[h] = Raster(torch.zeros((n_resp,) + crops[h].grid.shape, dtype=dtype, device=dev), crops[h].grid)
+    if not live:
+        return surfs
+    budget = -(-max(int(sels[h].sum()) for h in live) // 64) * 64
+    ct, yt, mt_ = pack_tiles(
+        [coords[sels[h]] for h in live], [res_mat[sels[h]] for h in live],
+        pad_to=budget, dtype=dtype, device=dev,
+    )
+    chunk = max(config.tps_tile_chunk, 1)
+    models = [
+        batched_tile_solve(ct[s : s + chunk], yt[s : s + chunk], mt_[s : s + chunk])
+        for s in range(0, len(live), chunk)
+    ]
+    for i, h in enumerate(live):
+        model_i = TPSModel(*(a[i % chunk] for a in models[i // chunk]))
+        g = crops[h].grid
+        surf = tps_predict_grid(model_i, g, block_rows=config.predict_block_rows)
+        surfs[h] = Raster(surf.to(dtype).movedim(-1, 0), g)
+    return surfs
+
+
+def mltps(
+    int_values,
+    covar_ras: Raster,
+    tps: bool = True,
+    smooth_outputs_only: bool = False,
+    trouble: bool = False,
+    *,
+    config: MLTPSConfig | None = None,
+    folds=None,
+    generator: torch.Generator | None = None,
+    device="cuda",
+    timer: PhaseTimer | None = None,
+) -> list[LayerResult]:
+    """Main entry point; see the module docstring.
+
+    ``folds``: optional (R, n) CV fold ids in [0, k) for the n stations left
+    after the NA drop; without them folds are drawn from ``generator``.
+    ``device``: where the run happens (``"cuda"`` raises without a GPU).
+    ``timer`` collects per-phase durations."""
+    dev = resolve_device(device)
+    timer = timer or PhaseTimer()
+    config = config or MLTPSConfig()
+    letters_pool = SMOOTH_LETTERS if smooth_outputs_only else "bgnmrv"
+    if config.letters_pool is not None:
+        letters_pool = "".join(l for l in letters_pool if l in config.letters_pool)
+        if not letters_pool:
+            raise ValueError(f"letters_pool {config.letters_pool!r} excludes every algorithm")
+    require_ported(letters_pool + ("b" if trouble else ""))
+
+    with timer.phase("input_prep"):
+        rast_stack, covar_names, coords, x_np, responses = _prepare_inputs(
+            int_values, covar_ras.to(dev)
+        )
+    dtype = rast_stack.data.dtype
+    x = torch.as_tensor(x_np, dtype=dtype, device=dev)
+    resp_names = list(responses)
+    n_resp = len(resp_names)
+    ys_all = np.stack([responses[rn] for rn in resp_names], axis=1)
+
+    # part 1 for all responses at once: every (response, fold) model of a
+    # letter trains in one batched call
+    log.info("=== part 1 — CV of %s over %d response(s) ===", letters_pool, n_resp)
+    with timer.phase("cv_all_responses"):
+        cv_all = run_cv(
+            x, torch.as_tensor(ys_all, dtype=dtype, device=dev), config=config.cv,
+            algorithms=letters_pool, folds=folds, generator=generator,
+        )
+
+    wres_all, kept_all = [], []
+    with timer.phase("ensemble_weights"):
+        for i, name in enumerate(resp_names):
+            rmat = residual_matrix({l: r[i] for l, r in cv_all.items()}, letters_pool)
+            wres = optimize_weights_lbfgsb(rmat, letters_pool)
+            kept = dict(zip(wres.letters, wres.kept_weights))
+            log.info("layer %s kept: %s weights %s (%s%%)", name, wres.letters, wres.kept_weights, wres.percent_text)
+            wres_all.append(wres)
+            kept_all.append((wres.letters, kept))
+
+    # part 2 — final fits, letter-major and batched across the responses
+    # that keep the letter; each letter's surfaces go straight into
+    # per-response weighted accumulators
+    ys_dev = {i: torch.as_tensor(responses[resp_names[i]], dtype=dtype, device=dev) for i in range(n_resp)}
+    pred_accs: list = [None] * n_resp
+    res_accs: list = [None] * n_resp
+    var_imps: list[dict[str, Any]] = [dict() for _ in range(n_resp)]
+    log.info("=== part 2 — final fits of %s ===", letters_pool)
+    for letter in letters_pool:
+        sel = [i for i, (_, kept) in enumerate(kept_all) if letter in kept]
+        if not sel:
+            continue
+        ycols = torch.as_tensor(np.stack([responses[resp_names[i]] for i in sel], axis=1), dtype=dtype, device=dev)
+        with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
+            bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config)
+        with timer.phase(f"raster_predict_{letter}_x{len(sel)}"):
+            bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=len(sel))
+        bpt = bfn(x)
+        for j, i in enumerate(sel):
+            wgt = float(kept_all[i][1][letter])
+            var_imps[i][letter] = imps[j]
+            contrib = (ys_dev[i] - bpt[:, j]) * wgt
+            surf = bsurf[..., j] * wgt
+            pred_accs[i] = surf if pred_accs[i] is None else pred_accs[i] + surf
+            res_accs[i] = contrib if res_accs[i] is None else res_accs[i] + contrib
+        del bsurf
+
+    ens_rasters, res_finals = [], []
+    for i, name in enumerate(resp_names):
+        total = wres_all[i].weight_total
+        ens_rasters.append(Raster(pred_accs[i] / total, rast_stack.grid, (name,)))  # V73:619 quirk
+        res_finals.append(res_accs[i].cpu().numpy().astype(np.float64) / total)    # V73:620
+        pred_accs[i] = None
+
+    tps_multi = None
+    if tps:
+        log.info("=== part 3/4 — TPS error surfaces (all responses) ===")
+        with timer.phase(f"tps_x{n_resp}"):
+            tps_multi, n_tiles = _tps_error_surface(coords, np.stack(res_finals, axis=1), rast_stack, config)
+        log.info("TPS tiled across %d tile(s)", n_tiles)
+
+    results = []
+    with timer.phase("finalize"):
+        for i, name in enumerate(resp_names):
+            y_np = responses[name]
+            wres = wres_all[i]
+            mods_run, kept = kept_all[i]
+            var_imp = {LETTER_TO_NAME[l]: var_imps[i][l] for l in kept}
+            res_final = res_finals[i]
+            ens_raster = ens_rasters[i]
+            tss = float(np.sum((y_np - y_np.mean()) ** 2))
+            rsq_model = 1.0 - float(np.sum(res_final**2)) / tss
+            residuals_out = np.stack([res_final, coords[:, 0], coords[:, 1]], axis=1)
+            summary = {
+                "layer": name,
+                "best model(s):": mods_run,
+                "ensemble weights:": wres.percent_text,
+                "r2 ensemble:": rsq_model,
+            }
+            final_raster, tps_raster = ens_raster, None
+            if tps:
+                tps_raster = Raster(tps_multi.data[i], rast_stack.grid, (name,))
+                final_c = Raster(ens_raster.data + tps_raster.data, rast_stack.grid, (name,))
+                f_at = extract(final_c, coords[:, 0], coords[:, 1]).cpu().numpy().astype(np.float64)
+                rsq_final = 1.0 - float(np.nansum((y_np - f_at) ** 2)) / tss
+                summary["r2 final:"] = rsq_final
+                # the reference overwrites $residuals from the summed raster
+                # UNCONDITIONALLY inside the tps==TRUE block (V73:914)
+                residuals_out = np.stack([y_np - f_at, coords[:, 0], coords[:, 1]], axis=1)
+                # keep the correction only if it improves R^2 (V73:925-930)
+                if rsq_final > rsq_model:
+                    final_raster = final_c
+            results.append(LayerResult(
+                name=name, final=final_raster, residuals=residuals_out, var_imp=var_imp,
+                summary=summary, n_layers=n_resp, ensemble=ens_raster,
+                tps_surface=tps_raster, weights=wres,
+            ))
+    log.info("timing:\n%s", timer.report())
+    return results
