@@ -14,9 +14,12 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
 * ``mltps_gm``: the main path, ``mltps(load_sampling(),
   synthetic_covariates(downsample=1), tps=True,
   config=MLTPSConfig(letters_pool="gm"))`` on the full 2476 x 3264 grid with
-  float64 covariates and numpy-drawn folds, counting the kernel's launches and
-  holding every r^2 to the JAX package's value for the same run
-  (``tools/record_jax_gm_r2.py --float64 1``) within 2e-3.
+  the covariates as built (float32) and numpy-drawn folds, counting the
+  kernel's launches and holding every r^2 to the JAX package's float32 value
+  for the same run (``tools/record_jax_gm_r2.py 1``) within 0.02;
+* ``mltps_gm_f64``: the same run with the covariates cast to float64, held
+  to the JAX package's float64 values (``tools/record_jax_gm_r2.py
+  --float64 1``) within 2e-3, with the same kept letters.
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -33,14 +36,24 @@ import time
 
 log = logging.getLogger("chip_smoke")
 
-# The JAX package's values for this run (covariates in float64, folds from
-# numpy_folds(813, 10, 2, seed=0)), from a CPU run of
-# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_gm_r2.py --float64 1`.
+# The JAX package's values for these runs (folds from numpy_folds(813, 10, 2,
+# seed=0)), from CPU runs of
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_gm_r2.py [--float64] 1`.
 JAX_REFERENCE = {
-    "bio_1": {"kept": "gm", "r2_ensemble": 0.8147260152130515, "r2_final": 0.9967941103902852},
-    "bio_12": {"kept": "m", "r2_ensemble": 0.7416836371554276, "r2_final": 0.9068688548689734},
+    "float64": {
+        "bio_1": {"kept": "gm", "r2_ensemble": 0.8147260152130515, "r2_final": 0.9967941103902852},
+        "bio_12": {"kept": "m", "r2_ensemble": 0.7416836371554276, "r2_final": 0.9068688548689734},
+    },
+    "float32": {
+        "bio_1": {"kept": "gm", "r2_ensemble": 0.8151210302054405, "r2_final": 0.9979223054672883},
+        "bio_12": {"kept": "m", "r2_ensemble": 0.7352740566202252, "r2_final": 0.9094304814818496},
+    },
 }
-R2_TOL = 2e-3
+# float64 runs agree to round-off.  In float32 the JAX package's own r² moves
+# by up to 0.0174 with the BLAS summation order alone (bio_12 r² ensemble at
+# downsample 4, multi- vs single-threaded), and the kept letters sit near the
+# 5 % weight cut, so float32 runs are held to a band, not to the letters.
+R2_TOL = {"float64": 2e-3, "float32": 2e-2}
 K1_TOL = 2e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -113,7 +126,9 @@ def phase_kernel_k1():
     model = batched_tile_solve(ct, yt, mt_)
     model = type(model)(*(a[0] for a in model))
     tab = tps_grid.grid_tables(model, g, torch.float32)
-    n_knots, n_resp = model.c.shape
+    # the function needs only the live stations; the budget's padded knots
+    # have c = 0 and are evaluated but add nothing
+    n_knots, n_resp = len(coords), model.c.shape[1]
     n_pad = tab.c.shape[1]
 
     got = tps_grid.tps_grid_cuda(tab, g)
@@ -145,7 +160,9 @@ def phase_kernel_k1():
     return res
 
 
-def phase_mltps_gm():
+def phase_mltps_gm(dtype: str):
+    """The main path with the covariates in ``dtype`` ("float32" as built,
+    or "float64"), held to the JAX package's values for that dtype."""
     import torch
 
     import machisplin_tpu_torch as mtt
@@ -154,8 +171,9 @@ def phase_mltps_gm():
     from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     cov = mtt.synthetic_covariates(downsample=1, device="cuda")
-    cov = mtt.Raster(cov.data.double(), cov.grid, cov.names)
+    cov = mtt.Raster(cov.data.to(getattr(torch, dtype)), cov.grid, cov.names)
     s = mtt.load_sampling()
     n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
     folds = numpy_folds(n, 10, 2, seed=0)
@@ -178,23 +196,25 @@ def phase_mltps_gm():
             d = getattr(r, attr).data
             if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
                 failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
-        ref = JAX_REFERENCE[r.name]
+        ref = JAX_REFERENCE[dtype][r.name]
         got = {
             "kept": r.summary["best model(s):"], "weights": r.weights.weights.tolist(),
             "percent": r.summary["ensemble weights:"],
             "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"],
         }
         layers[r.name] = got
-        if got["kept"] != ref["kept"]:
+        if dtype == "float64" and got["kept"] != ref["kept"]:
             failures.append(f"{r.name} kept {got['kept']!r}, the JAX package keeps {ref['kept']!r}")
         for key in ("r2_ensemble", "r2_final"):
-            if not abs(got[key] - ref[key]) <= R2_TOL:
+            if not abs(got[key] - ref[key]) <= R2_TOL[dtype]:
                 failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {ref[key]}")
     emit({
-        "phase": "mltps_gm", "seconds": time.perf_counter() - t0, "setup_s": t_setup,
+        "phase": "mltps_gm" if dtype == "float32" else "mltps_gm_f64",
+        "seconds": time.perf_counter() - t0, "setup_s": t_setup,
         "mltps_wall_s": wall, "grid": list(cov.grid.shape), "stations": n,
         "dtype": str(cov.data.dtype), "phases_s": timer.as_dict(),
-        "launches": launches, "layers": layers, "jax_reference": JAX_REFERENCE,
+        "launches": launches, "layers": layers, "jax_reference": JAX_REFERENCE[dtype],
+        "r2_tol": R2_TOL[dtype],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
     if launches["tps_grid"] < 6:
@@ -218,7 +238,8 @@ def main() -> int:
 
     phase_build()
     k1 = phase_kernel_k1()
-    launches = phase_mltps_gm()
+    launches = phase_mltps_gm("float32")
+    phase_mltps_gm("float64")
     emit({"kernels": [{
         "name": "tps_grid", "route": "cuda", "source": "machisplin_tpu_torch/csrc/tps_grid.cu",
         "replaces": "machisplin_tpu/ops/pallas_tps.py:56", "launches": launches["tps_grid"],

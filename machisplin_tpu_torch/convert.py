@@ -12,6 +12,7 @@ import torch
 from .models.gam import GAMState
 from .models.mars import MARSState
 from .ops.tps import TPSModel
+from .utils import resolve_device
 
 __all__ = ["tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy"]
 
@@ -21,28 +22,28 @@ def _fields(d) -> dict:
 
 
 def _t(a, dtype, device):
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
 
 
-def tps_model_from_numpy(d, dtype=torch.float64, device="cpu") -> TPSModel:
+def tps_model_from_numpy(d, dtype=torch.float64, device="cuda") -> TPSModel:
     """TPSModel from the JAX ``TPSModel`` fields (knots, c, d, shift, scale,
     lam, gcv, fitted, residuals, eff_df)."""
     f = _fields(d)
     return TPSModel(**{k: _t(f[k], dtype, device) for k in TPSModel._fields})
 
 
-def gam_state_from_numpy(d, dtype=torch.float64, device="cpu") -> GAMState:
+def gam_state_from_numpy(d, dtype=torch.float64, device="cuda") -> GAMState:
     """GAMState from the JAX ``GAMState`` fields (coef, x_mean, x_scale)."""
     f = _fields(d)
     return GAMState(**{k: _t(f[k], dtype, device) for k in GAMState._fields})
 
 
-def mars_state_from_numpy(d, dtype=torch.float64, device="cpu") -> MARSState:
+def mars_state_from_numpy(d, dtype=torch.float64, device="cuda") -> MARSState:
     """MARSState from the JAX ``MARSState`` fields of a degree-1 fit; its
     ``parent`` field must be all zero (no interaction terms)."""
     f = _fields(d)
     if "parent" in f and np.any(np.asarray(f["parent"]) != 0):
         raise NotImplementedError("MARS interaction terms (degree > 1) are not ported yet")
     out = {k: _t(f[k], dtype, device) for k in MARSState._fields if k != "vars"}
-    out["vars"] = torch.as_tensor(np.array(f["vars"]), dtype=torch.int64, device=device)
+    out["vars"] = torch.as_tensor(np.array(f["vars"]), dtype=torch.int64, device=resolve_device(device))
     return MARSState(**out)

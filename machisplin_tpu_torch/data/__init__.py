@@ -41,8 +41,8 @@ def synthetic_covariates(downsample: int = 8, seed: int = 0, device="cuda") -> R
     dev = resolve_device(device)
     g = example_grid(downsample)
     rng = np.random.default_rng(seed)
-    xs = g.x_coords(torch.float32).numpy()[None, :]
-    ys = g.y_coords(torch.float32).numpy()[:, None]
+    xs = g.x_coords(torch.float32, "cpu").numpy()[None, :]
+    ys = g.y_coords(torch.float32, "cpu").numpy()[:, None]
     # Andes-like ridge running NW-SE with valley dissection
     ridge = 3800 * np.exp(-((xs + 77.3 + 0.35 * (ys + 6.8)) ** 2) / 0.18)
     valleys = 400 * np.sin(40 * xs) * np.cos(35 * ys)

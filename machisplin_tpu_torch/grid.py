@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .utils import resolve_device
+
 __all__ = [
     "GridSpec",
     "Raster",
@@ -66,14 +68,16 @@ class GridSpec:
     def ncell(self) -> int:
         return self.nrows * self.ncols
 
-    def x_coords(self, dtype=torch.float32, device=None) -> torch.Tensor:
+    def x_coords(self, dtype=torch.float32, device="cuda") -> torch.Tensor:
         """Cell-centre x coordinate per column, shape (ncols,), computed in
         ``dtype`` (the scalar edge and cell size are rounded to it first)."""
+        device = resolve_device(device)
         i = torch.arange(self.ncols, dtype=dtype, device=device)
         return self.xmin + (i + 0.5) * torch.tensor(self.dx, dtype=dtype, device=device)
 
-    def y_coords(self, dtype=torch.float32, device=None) -> torch.Tensor:
+    def y_coords(self, dtype=torch.float32, device="cuda") -> torch.Tensor:
         """Cell-centre y coordinate per row, shape (nrows,)."""
+        device = resolve_device(device)
         i = torch.arange(self.nrows, dtype=dtype, device=device)
         return self.ymax - (i + 0.5) * torch.tensor(self.dy, dtype=dtype, device=device)
 
@@ -177,7 +181,7 @@ def stack(rasters: Sequence[Raster], names: Sequence[str] | None = None) -> Rast
     return Raster(torch.cat(arrs, dim=0), g, tuple(names or nm))
 
 
-def lonlat_rasters(grid: GridSpec, dtype=torch.float32, device=None) -> Raster:
+def lonlat_rasters(grid: GridSpec, dtype=torch.float32, device="cuda") -> Raster:
     """LONG/LAT covariate bands from cell centres (V73:127-133)."""
     lon = grid.x_coords(dtype, device)[None, :].expand(grid.shape)
     lat = grid.y_coords(dtype, device)[:, None].expand(grid.shape)

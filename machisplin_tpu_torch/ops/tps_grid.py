@@ -24,17 +24,11 @@ from ..grid import GridSpec
 
 __all__ = ["GridTables", "grid_tables", "tps_grid", "tps_grid_cuda", "tps_grid_plain", "LAUNCHES"]
 
-_KNOT_CHUNK = 128
-_KNOT_CHUNK_LARGE = 256
-_LARGE_KNOTS = 1536
+_KNOT_CHUNK = 128  # the kernel's CHUNK: knots staged per shared-memory pass
 _MAX_RESP = 8  # responses per launch (the kernel's register accumulators)
 
 # kernel launches since the last reset: {"tps_grid": n}
 LAUNCHES = {"tps_grid": 0}
-
-
-def _chunk_for(n: int) -> int:
-    return _KNOT_CHUNK_LARGE if n >= _LARGE_KNOTS else _KNOT_CHUNK
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,7 +53,7 @@ def grid_tables(model, grid: GridSpec, dtype=None) -> GridTables:
     ccols = (c[:, None] if single else c).to(dtype)
     dcols = (model.d[:, None] if single else model.d).to(dtype)
     n = ccols.shape[0]
-    n_pad = _round_up(max(n, _chunk_for(n)), _chunk_for(n))
+    n_pad = _round_up(n, _KNOT_CHUNK)
     dev = c.device
     kxy = torch.full((2, n_pad), 0.5, dtype=dtype, device=dev)
     kxy[:, :n] = model.knots.to(dtype).T

@@ -12,11 +12,12 @@ import numpy as np
 import torch
 
 from ..ops.tps import TPSModel, tps_factor, tps_solve
+from ..utils import resolve_device
 
 __all__ = ["pack_tiles", "batched_tile_solve"]
 
 
-def pack_tiles(coords_list, y_list, pad_to: int | None = None, dtype=torch.float64, device="cpu"):
+def pack_tiles(coords_list, y_list, pad_to: int | None = None, dtype=torch.float64, device="cuda"):
     """Pad per-tile (coords, y) to one knot budget with masks.
 
     Returns coords (T, K, 2), y (T, K) or (T, K, R), mask (T, K) as tensors
@@ -35,7 +36,8 @@ def pack_tiles(coords_list, y_list, pad_to: int | None = None, dtype=torch.float
         coords[i, :n] = np.asarray(c)
         y[i, :n] = np.asarray(v)
         mask[i, :n] = 1.0
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    dev = resolve_device(device)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     return as_t(coords), as_t(y), as_t(mask)
 
 

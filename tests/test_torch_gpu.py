@@ -34,7 +34,7 @@ def _model(n_knots, n_resp, device, seed=0):
     (50, 1, (37, 53)),        # one response, ragged last block
     (300, 2, (129, 260)),     # the main path's response count
     (200, 9, (20, 31)),       # more responses than one launch holds
-    (1600, 3, (64, 64)),      # the wide knot chunk
+    (813, 3, (64, 64)),       # every station in one model, a ragged last chunk
 ])
 def test_k1_matches_plain(cuda, n_knots, n_resp, shape):
     model = _model(n_knots, n_resp, cuda)

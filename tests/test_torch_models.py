@@ -22,6 +22,7 @@ from machisplin_tpu.models import gam as jgam, mars as jmars
 from machisplin_tpu_torch import convert, data as tdata, grid as tgrid
 from machisplin_tpu_torch.ensemble import cv as tcv, weights as tweights
 from machisplin_tpu_torch.models import gam as tgam, mars as tmars
+from machisplin_tpu_torch.parallel import tiles as ttiles
 
 # the ensemble packages re-export the kfold function under the module's name
 jkfold = importlib.import_module("machisplin_tpu.ensemble.kfold")
@@ -36,7 +37,7 @@ def stations():
     """(x (n, 5) station covariates, ys (n, 2)) in float64."""
     cov = tdata.synthetic_covariates(downsample=48, device="cpu")
     s = tdata.load_sampling()
-    stk = tgrid.stack([cov, tgrid.lonlat_rasters(cov.grid)])
+    stk = tgrid.stack([cov, tgrid.lonlat_rasters(cov.grid, device="cpu")])
     x = tgrid.extract(stk, s["long"], s["lat"]).numpy().astype(np.float64)
     ok = np.isfinite(x).all(1)
     ys = np.stack([s["bio_1"], s["bio_12"]], 1)[ok]
@@ -54,16 +55,26 @@ def test_synthetic_covariates_bit_identical(downsample):
 def test_entry_points_refuse_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tdata.synthetic_covariates(downsample=48)
+    g = tgrid.GridSpec(nrows=3, ncols=4, xmin=0.0, ymax=1.0, dx=0.25, dy=1 / 3)
+    calls = [
+        lambda: tdata.synthetic_covariates(downsample=48),
+        lambda: tgrid.lonlat_rasters(g),
+        lambda: g.x_coords(),
+        lambda: g.y_coords(),
+        lambda: ttiles.pack_tiles([np.zeros((3, 2))], [np.zeros(3)]),
+        lambda: convert.gam_state_from_numpy({"coef": np.zeros(3), "x_mean": np.zeros(2), "x_scale": np.ones(2)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_grid_ops_match_jax(rng, dtype):
     jg = jgrid.GridSpec(nrows=30, ncols=40, xmin=-1.0, ymax=2.0, dx=0.05, dy=0.04)
     tg = tgrid.GridSpec(nrows=30, ncols=40, xmin=-1.0, ymax=2.0, dx=0.05, dy=0.04)
-    np.testing.assert_array_equal(tg.x_coords(torch.float32).numpy(), np.asarray(jg.x_coords(jnp.float32)))
-    np.testing.assert_array_equal(tg.y_coords(torch.float32).numpy(), np.asarray(jg.y_coords(jnp.float32)))
+    np.testing.assert_array_equal(tg.x_coords(torch.float32, "cpu").numpy(), np.asarray(jg.x_coords(jnp.float32)))
+    np.testing.assert_array_equal(tg.y_coords(torch.float32, "cpu").numpy(), np.asarray(jg.y_coords(jnp.float32)))
     field = rng.normal(size=(2, 30, 40)).astype(dtype)
     field[0, 3, 4] = np.nan
     jr, tr = jgrid.Raster(jnp.asarray(field), jg), tgrid.Raster(torch.as_tensor(field), tg)
@@ -79,7 +90,7 @@ def test_grid_ops_match_jax(rng, dtype):
     jm = jgrid.mosaic([jgrid.crop(jr, e) for e in parts], jg)
     tm = tgrid.mosaic([tgrid.crop(tr, e) for e in parts], tg)
     np.testing.assert_allclose(tm.data.numpy(), np.asarray(jm.data), rtol=1e-6, equal_nan=True)
-    ll = tgrid.lonlat_rasters(tg, torch.float32)
+    ll = tgrid.lonlat_rasters(tg, torch.float32, "cpu")
     np.testing.assert_array_equal(ll.data.numpy(), np.asarray(jgrid.lonlat_rasters(jg, jnp.float32).data))
 
 
@@ -95,7 +106,7 @@ def test_gam_matches_jax(stations):
     assert list(gi) == list(wi)
     np.testing.assert_allclose([gi[k] for k in gi], [wi[k] for k in wi], rtol=1e-8)
     # the JAX state carried over predicts the same
-    carried = convert.gam_state_from_numpy({k: np.asarray(v) for k, v in want._asdict().items()})
+    carried = convert.gam_state_from_numpy({k: np.asarray(v) for k, v in want._asdict().items()}, device="cpu")
     np.testing.assert_allclose(tgam.predict(carried, torch.as_tensor(x)).numpy(), np.asarray(jgam.predict(want, jnp.asarray(x))), rtol=1e-12)
 
 
@@ -116,7 +127,7 @@ def test_mars_matches_jax(stations, resp):
     for k in NAMES:
         assert gi[k]["nsubsets"] == wi[k]["nsubsets"]
         np.testing.assert_allclose(gi[k]["rss"], wi[k]["rss"], rtol=1e-6, atol=1e-8)
-    carried = convert.mars_state_from_numpy({k: np.asarray(v) for k, v in want._asdict().items()})
+    carried = convert.mars_state_from_numpy({k: np.asarray(v) for k, v in want._asdict().items()}, device="cpu")
     np.testing.assert_allclose(tmars.predict(carried, torch.as_tensor(x)).numpy(), pw, rtol=1e-12, atol=1e-12 * np.abs(pw).max())
 
 

@@ -76,7 +76,7 @@ def test_plain_grid_matches_pallas_interpret(rng, n_resp):
     jgrid = JGridSpec(nrows=40, ncols=56, xmin=0.0, ymax=1.0, dx=1 / 56, dy=1 / 40)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(tps_grid_pallas(jmodel, jgrid))
-    model = convert.tps_model_from_numpy(_fields(jmodel), dtype=torch.float32)
+    model = convert.tps_model_from_numpy(_fields(jmodel), dtype=torch.float32, device="cpu")
     tgrid_ = tgrid.GridSpec(nrows=40, ncols=56, xmin=0.0, ymax=1.0, dx=1 / 56, dy=1 / 40)
     got = ttps.tps_predict_grid(model, tgrid_, block_rows=7).numpy()
     assert got.shape == want.shape
@@ -105,7 +105,7 @@ def test_grid_plain_matches_pointwise_predict(rng):
     model = ttps.tps_fit(torch.as_tensor(pts), torch.as_tensor(y))
     g = tgrid.GridSpec(nrows=9, ncols=11, xmin=0.0, ymax=1.0, dx=1 / 11, dy=1 / 9)
     surf = ttps.tps_predict_grid(model, g, block_rows=4)
-    xx, yy = np.meshgrid(g.x_coords(torch.float64).numpy(), g.y_coords(torch.float64).numpy())
+    xx, yy = np.meshgrid(g.x_coords(torch.float64, "cpu").numpy(), g.y_coords(torch.float64, "cpu").numpy())
     pw = ttps.tps_predict(model, torch.as_tensor(np.stack([xx.ravel(), yy.ravel()], 1)))
     np.testing.assert_allclose(surf.numpy().ravel(), pw.numpy(), rtol=1e-9, atol=1e-9)
 
@@ -154,7 +154,7 @@ def test_batched_tile_solve_matches_jax(sampling):
     parts = [(coords[i::4][: 30 + 7 * i], ys[i::4][: 30 + 7 * i]) for i in range(3)]
     jc, jy, jm = jsharded.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64)
     want = jsharded.batched_tile_solve(jc, jy, jm)
-    tc, ty, tm = ttiles.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64)
+    tc, ty, tm = ttiles.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64, device="cpu")
     got = ttiles.batched_tile_solve(tc, ty, tm)
     for k in ("lam", "c", "d", "fitted"):
         w = np.asarray(getattr(want, k))

@@ -3,9 +3,9 @@
 Runs ``machisplin_tpu.mltps(load_sampling(), synthetic_covariates(ds),
 tps=True, config=MLTPSConfig(letters_pool="gm"))`` on the CPU with fold ids
 drawn by numpy (seed 0, one draw per response) instead of JAX's threefry
-draws, so that the PyTorch port can be run on the same folds and held to
-these values.  The fold draw is the same as
-``machisplin_tpu_torch.ensemble.kfold.numpy_folds``.
+draws (``machisplin_tpu_torch.ensemble.kfold.numpy_folds``, the draw the
+port is given), so that the PyTorch port can be run on the same folds and
+held to these values.
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_gm_r2.py [--float64] 1 4
 
@@ -20,14 +20,7 @@ import sys
 import time
 from unittest import mock
 
-import numpy as np
-
-
-def numpy_folds(n: int, k: int, n_resp: int, seed: int = 0) -> np.ndarray:
-    cuts = np.round(np.concatenate([[0.0], n / k * np.arange(1, k), [float(n)]]))
-    group = np.repeat(np.arange(k, dtype=np.int32), np.diff(cuts).astype(int))
-    rng = np.random.default_rng(seed)
-    return np.stack([group[rng.permutation(n)] for _ in range(n_resp)])
+from machisplin_tpu_torch.ensemble.kfold import numpy_folds
 
 
 def record(downsample: int, dtype: str = "float32") -> dict:
