@@ -19,7 +19,21 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   for the same run (``tools/record_jax_gm_r2.py 1``) within 0.02;
 * ``mltps_gm_f64``: the same run with the covariates cast to float64, held
   to the JAX package's float64 values (``tools/record_jax_gm_r2.py
-  --float64 1``) within 2e-3, with the same kept letters.
+  --float64 1``) within 2e-3, with the same kept letters;
+* ``kernel_k2``: the tree grower K2 against its plain version on the
+  stations' covariates binned globally, at the CV shape (200 chains, tree
+  complexity 25) and the finals' shape (20 chains, tree complexity 5,
+  emitting trees), at a first tree and after 300 boosting steps: every
+  chain's tree the same, or parting at a near-tie (relative gain gap <=
+  1e-5), and f within 1e-5 of the residuals' scale where the trees agree;
+* ``mltps_b``: the slice's path, ``mltps(..., config=MLTPSConfig(
+  letters_pool="b"))`` on the full grid (covariates as built, float32),
+  counting every kernel's launches (K1 = 6, K2 and K3 > 0), both responses
+  keeping "b", every r^2 within 0.01 of the JAX package's value for key 0
+  (``tools/record_jax_b_r2.py``);
+* ``kernel_k3``: the forest predictor K3 against its plain version on one
+  full-width 256-row panel of the grid with the forest ``mltps_b`` built:
+  leaf-membership counts equal, weighted sums within 1e-5 of sum |w v|.
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -27,6 +41,7 @@ exits non-zero; so does a run without a CUDA device, or outside a checkout.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import logging
 import os
@@ -55,6 +70,22 @@ JAX_REFERENCE = {
 # 5 % weight cut, so float32 runs are held to a band, not to the letters.
 R2_TOL = {"float64": 2e-3, "float32": 2e-2}
 K1_TOL = 2e-4
+
+# The JAX package's values for mltps over the BRT pool (covariates as built,
+# float32; folds from numpy_folds(813, 10, 2, seed=0); PRNG key 0), from
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_b_r2.py --keys 0,1,2,3 1`.
+JAX_REFERENCE_B = {
+    "bio_1": {"kept": "b", "r2_ensemble": 0.9279753557146534, "r2_final": 0.9950903953662055},
+    "bio_12": {"kept": "b", "r2_ensemble": 0.8545358083105786, "r2_final": 0.9324266439853093},
+}
+# The port's bags come from torch, the JAX package's from threefry; over keys
+# 0-3 the JAX package's own r² spans up to R2_SPREAD_B (bio_12 r² ensemble).
+R2_SPREAD_B = 0.0035
+R2_TOL_B = 0.01
+# K2 against its plain version: trees that part must part at a near-tie
+TIE_GAP = 1e-5
+K2_TOL = 1e-5   # of max |y - f|, where the trees agree
+K3_TOL = 1e-5   # of sum |w v| per response
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_OPS = 67e12
@@ -167,7 +198,6 @@ def phase_mltps_gm(dtype: str):
 
     import machisplin_tpu_torch as mtt
     from machisplin_tpu_torch.ensemble.kfold import numpy_folds
-    from machisplin_tpu_torch.ops import tps_grid
     from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
 
     t0 = time.perf_counter()
@@ -180,14 +210,13 @@ def phase_mltps_gm(dtype: str):
     t_setup = time.perf_counter() - t0
 
     timer = mtt.PhaseTimer()
-    for k in tps_grid.LAUNCHES:
-        tps_grid.LAUNCHES[k] = 0
+    _reset_launches()
     t1 = time.perf_counter()
     out = mtt.mltps(s, cov, tps=True, config=MLTPSConfig(letters_pool="gm"), folds=folds,
                     device="cuda", timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = dict(tps_grid.LAUNCHES)
+    launches = _read_launches()
 
     mask = torch.isfinite(cov.data).all(0)
     layers, failures = {}, []
@@ -224,6 +253,308 @@ def phase_mltps_gm(dtype: str):
     return launches
 
 
+def _reset_launches():
+    from machisplin_tpu_torch.ops import forest, tps_grid, tree_grow
+
+    for counts in (tps_grid.LAUNCHES, tree_grow.LAUNCHES, forest.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_launches() -> dict:
+    from machisplin_tpu_torch.ops import forest, tps_grid, tree_grow
+
+    return {**tps_grid.LAUNCHES, **tree_grow.LAUNCHES, **forest.LAUNCHES}
+
+
+def _stations(device="cuda"):
+    """Station covariates (float32, as built) and responses of the main path."""
+    import numpy as np
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.pipeline.mltps import _prepare_inputs
+
+    cov = mtt.synthetic_covariates(downsample=1, device=device)
+    _, _, _, x_np, responses = _prepare_inputs(mtt.load_sampling(), cov)
+    return x_np.astype(np.float32), np.stack(list(responses.values()), 1)
+
+
+def _ptxas_summary(name: str) -> list:
+    from machisplin_tpu_torch.kernels import build
+
+    return [ln.strip() for ln in build.ptxas_info().get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def _k2_work(xb, trees, n_splits, nb):
+    """Operations K2's function needs for these grown trees: per chain, the
+    root's histogram (4 hi/lo adds per row and feature) and 12-operation gains
+    over the p * nb candidates; per split, the parent's rows' histograms
+    (4 adds per row and feature), two children's gains and one routing test
+    per row; 2 operations per row for the update."""
+    import numpy as np
+
+    from machisplin_tpu_torch.ops.tree_grow import split_sequence
+
+    n, p = xb.shape
+    feat, thr, internal, left = (t.cpu().numpy() for t in trees[:4])
+    ops = 0
+    for c in range(feat.shape[0]):
+        cur = np.zeros(n, np.int64)
+        ops += 4 * n * p + 12 * p * nb + 2 * n
+        for k, (q, f, b) in enumerate(split_sequence(feat[c], thr[c], internal[c], left[c])):
+            rows = cur == q
+            m = int(rows.sum())
+            ops += 4 * m * p + 2 * 12 * p * nb + m
+            cur[rows] = np.where(xb[rows, f] <= b, 2 * k + 1, 2 * k + 2)
+    return ops
+
+
+def phase_kernel_k2():
+    """K2 against its plain version at the CV and the finals' shapes."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import gbm_step, trees as ttrees
+    from machisplin_tpu_torch.ops import tree_grow
+
+    t0 = time.perf_counter()
+    x_np, ys = _stations()
+    n = x_np.shape[0]
+    x = torch.as_tensor(x_np, device="cuda")
+    nb, min_leaf = 64, 10.0
+    edges = ttrees.make_bins(x, nb)
+    xb = ttrees.bin_data(x, edges)
+    xbt = xb.T.to(torch.uint8).contiguous()
+    xb_np = xb.cpu().numpy()
+    gen = torch.Generator().manual_seed(1)
+    ycols = torch.as_tensor(ys, dtype=torch.float32, device="cuda")           # (n, 2)
+
+    # CV shape: (response, outer fold) chains, each with 10 inner folds
+    folds = torch.as_tensor(numpy_folds(n, 10, 2, seed=0), device="cuda")    # (2, n)
+    outer = (folds[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float().reshape(20, n)
+    y_outer = ycols.T.repeat_interleave(10, dim=0)                            # (20, n)
+    sel = gbm_step._draw_selectors(gen, outer, 10)
+    cv_w = ((sel[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float()
+            * outer[:, None, :]).reshape(200, n)
+    cv_y = y_outer.repeat_interleave(10, dim=0)
+    # finals' shape: every response's 10 inner folds over all rows
+    sel_f = torch.as_tensor(np.stack([gbm_step._make_selector(gen, ys[:, j], np.ones(n), 10) for j in range(2)]),
+                            device="cuda").long()
+    fin_w = (sel_f[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float().reshape(20, n)
+    fin_y = ycols.T.repeat_interleave(10, dim=0)
+
+    shapes = {
+        "cv": dict(y=cv_y.contiguous(), w=cv_w.contiguous(), n_splits=25, lr=0.01, emit=False),
+        "finals": dict(y=fin_y.contiguous(), w=fin_w.contiguous(), n_splits=5, lr=0.001, emit=True),
+    }
+    res = {"phase": "kernel_k2", "stations": n, "features": int(xb.shape[1]), "nb": nb,
+           "tie_gap": TIE_GAP, "tol": K2_TOL, "ptxas": _ptxas_summary("tree_grow"), "shapes": {}}
+    failures = []
+    g_dev = torch.Generator(device="cuda").manual_seed(2)
+    for name, sh in shapes.items():
+        y, w, n_splits, lr = sh["y"], sh["w"], sh["n_splits"], sh["lr"]
+        c = y.shape[0]
+        kw = dict(n_splits=n_splits, nb=nb, min_leaf=min_leaf)
+        f = ((w * y).sum(1) / w.sum(1).clamp_min(1.0))[:, None].expand(c, n).contiguous()
+        checks = []
+        for step in range(301):
+            bag = (torch.rand((c, n), generator=g_dev, device="cuda") < 0.5).float() * w
+            if step in (0, 300):
+                got = tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=True, **kw)
+                want = tree_grow.gbm_tree_update_plain(xb.T, None, y, f, bag, lr=lr, emit_tree=True, **kw)
+                torch.cuda.synchronize()
+                got_np = [a.cpu().numpy() for a in got]
+                want_np = [a.cpu().numpy() for a in want]
+                r = (y - f).cpu().numpy()
+                bag_np = bag.cpu().numpy()
+                same, gaps, err = 0, [], 0.0
+                for ch in range(c):
+                    gap = tree_grow.near_tie_gap(
+                        xb_np, r[ch], bag_np[ch], [want_np[k][ch] for k in (1, 2, 3, 4)],
+                        [got_np[k][ch] for k in (1, 2, 3, 4)], nb=nb, min_leaf=min_leaf)
+                    if gap is None:
+                        same += 1
+                        err = max(err, float(np.abs(got_np[0][ch] - want_np[0][ch]).max()))
+                    else:
+                        gaps.append(gap)
+                scale = float(np.abs(r).max())
+                checks.append({"step": step, "chains": c, "identical_trees": same,
+                               "differing_gaps": sorted(gaps), "max_abs_err": err, "scale": scale})
+                if any(g > TIE_GAP for g in gaps):
+                    failures.append(f"K2 {name} step {step}: trees part away from a near-tie {max(gaps)}")
+                if not err <= K2_TOL * scale:
+                    failures.append(f"K2 {name} step {step}: f differs by {err} > {K2_TOL} * {scale}")
+                timed_trees = got[1:6]
+            f = tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=False, **kw)
+        bag = (torch.rand((c, n), generator=g_dev, device="cuda") < 0.5).float() * w
+        emit_tree = sh["emit"]
+        ms = cuda_ms(lambda: tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=emit_tree, **kw),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: tree_grow.gbm_tree_update_plain(xb.T, None, y, f, bag, lr=lr,
+                                                                 emit_tree=emit_tree, **kw), reps=3)
+        ops = _k2_work(xb_np, timed_trees, n_splits, nb)
+        n_total = 2 * n_splits + 1
+        nbytes = xb.numel() + 4 * 4 * c * n + (4 * c * (6 * n_total + xb.shape[1]) if emit_tree else 0)
+        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        res["shapes"][name] = {
+            "chains": c, "n_splits": n_splits, "emit_tree": emit_tree, "checks": checks,
+            "smem_bytes": tree_grow.smem_bytes(n, int(xb.shape[1]), nb, n_splits),
+            "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+            "ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_mltps_b(captured: dict):
+    """The slice's path: mltps over the BRT pool at full size, float32."""
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import gbm_step
+    from machisplin_tpu_torch.ops import tree_grow
+    from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
+
+    mltps_mod = importlib.import_module("machisplin_tpu_torch.pipeline.mltps")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 2, seed=0)
+    t_setup = time.perf_counter() - t0
+
+    # observe (without changing) what the run builds: the finals' results,
+    # the K2 launches before them, and the merged forest's device tables
+    fit_multi, prepare = gbm_step.fit_multi, mltps_mod.prepare_forest
+
+    def fit_multi_seen(*a, **kw):
+        captured["cv_steps"] = tree_grow.LAUNCHES["tree_grow"]
+        out = fit_multi(*a, **kw)
+        captured["finals"] = [(r.best_trees, r.restarts, r.learning_rate, r.trees_fitted) for r in out]
+        return out
+
+    def prepare_seen(*a, **kw):
+        captured["forest"] = prepare(*a, **kw)
+        return captured["forest"]
+
+    gbm_step.fit_multi, mltps_mod.prepare_forest = fit_multi_seen, prepare_seen
+    timer = mtt.PhaseTimer()
+    try:
+        _reset_launches()
+        t1 = time.perf_counter()
+        out = mtt.mltps(s, cov, tps=True, config=MLTPSConfig(letters_pool="b"), folds=folds,
+                        generator=torch.Generator().manual_seed(0), device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _read_launches()
+    finally:
+        gbm_step.fit_multi, mltps_mod.prepare_forest = fit_multi, prepare
+    captured["stack"] = cov
+
+    mask = torch.isfinite(cov.data).all(0)
+    layers, failures = {}, []
+    for r in out:
+        for attr in ("final", "ensemble", "tps_surface"):
+            d = getattr(r, attr).data
+            if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
+                failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
+        ref = JAX_REFERENCE_B[r.name]
+        got = {"kept": r.summary["best model(s):"], "r2_ensemble": r.summary["r2 ensemble:"],
+               "r2_final": r.summary["r2 final:"], "var_imp": r.var_imp}
+        layers[r.name] = got
+        if got["kept"] != ref["kept"]:
+            failures.append(f"{r.name} kept {got['kept']!r}, the JAX package keeps {ref['kept']!r}")
+        for key in ("r2_ensemble", "r2_final"):
+            if not abs(got[key] - ref[key]) <= R2_TOL_B:
+                failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {ref[key]}")
+    ft = captured.get("forest")
+    emit({
+        "phase": "mltps_b", "seconds": time.perf_counter() - t0, "setup_s": t_setup, "mltps_wall_s": wall,
+        "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": timer.as_dict(),
+        "launches": launches, "k2_steps_cv": captured.get("cv_steps"),
+        "k2_steps_finals": launches["tree_grow"] - (captured.get("cv_steps") or 0),
+        "finals_best_trees_restarts_lr_fitted": captured.get("finals"),
+        "forest_slots": None if ft is None else int(ft.lo_w.shape[0]),
+        "layers": layers, "jax_reference": JAX_REFERENCE_B, "r2_tol": R2_TOL_B, "jax_key_spread": R2_SPREAD_B,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if launches["tps_grid"] != 6:
+        failures.append(f"K1 launched {launches['tps_grid']} times on the BRT path, expected 6")
+    if launches["tree_grow"] <= 0 or launches["forest_predict"] <= 0:
+        failures.append(f"a tree kernel did not run on the BRT path: {launches}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return launches
+
+
+def phase_kernel_k3(captured: dict):
+    """K3 against its plain version on one full-width 256-row panel of the
+    grid, with the merged forest that mltps_b built."""
+    import torch
+
+    from machisplin_tpu_torch.grid import lonlat_rasters, stack
+    from machisplin_tpu_torch.ops import forest
+
+    t0 = time.perf_counter()
+    ft = captured["forest"]
+    cov = captured["stack"]
+    rs = stack([cov, lonlat_rasters(cov.grid, cov.data.dtype, cov.data.device)])
+    h = rs.data.shape[1]
+    r0 = (h // 2) // 256 * 256
+    blk = rs.data[:, r0 : r0 + 256, :]
+    x = blk.movedim(0, -1).reshape(-1, blk.shape[0]).to(torch.float32)
+    x = torch.where(torch.isfinite(x).all(1, keepdim=True), x, torch.zeros((), device=x.device))
+    got = forest.forest_predict_cuda(ft, x)
+    want = forest.forest_predict_plain(ft, x)
+    ones = ft._replace(wv=torch.ones((ft.wv.shape[0], 1), device=x.device), offset=ft.offset[:1])
+    counts = forest.forest_predict_plain(ones, x)
+    counts_equal = bool(torch.equal(forest.forest_predict_cuda(ones, x), counts))
+    torch.cuda.synchronize()
+    err = (got - want).abs().max(0).values
+    scale = ft.wv.abs().sum(0)
+    ms = cuda_ms(lambda: forest.forest_predict_cuda(ft, x), reps=5)
+    plain_ms = cuda_ms(lambda: forest.forest_predict_plain(ft, x), reps=1)
+    m, p = x.shape
+    slots, n_resp = ft.wv.shape
+    # the work these tables and cells need: per cell, one compare for each
+    # bound a real slot constrains (lo > 0 or hi < n_bins - 1; padded slots
+    # and unconstrained bounds need none), and R adds for each slot the cell
+    # falls in (the membership counts above)
+    n_bins = int(torch.isfinite(ft.etab).sum(1).max()) + 1
+    real = (ft.lo <= ft.hi).all(0)
+    bounds = int(((ft.lo[:, real] > 0).sum() + (ft.hi[:, real] < n_bins - 1).sum()))
+    matches = int(counts.sum())
+    real_slots = int(real.sum())
+    ops = m * bounds + n_resp * matches
+    nbytes = 4 * m * (p + n_resp) + real_slots * (ft.lo_w.shape[1] * 8 + 4 * n_resp)
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    res = {
+        "phase": "kernel_k3", "seconds": time.perf_counter() - t0, "panel_rows": [r0, r0 + 256],
+        "cells": m, "features": p, "slots": slots, "real_slots": real_slots, "constrained_bounds": bounds,
+        "matches": matches, "responses": n_resp,
+        "membership_counts_equal": counts_equal, "max_abs_err": err.tolist(),
+        "sum_abs_wv": scale.tolist(), "tol": K3_TOL, "ms": ms, "plain_ms": plain_ms,
+        "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ptxas": _ptxas_summary("forest_predict"),
+    }
+    emit(res)
+    if not counts_equal:
+        raise RuntimeError("K3's leaf-membership counts differ from its plain version")
+    if not bool((err <= K3_TOL * scale).all()):
+        raise RuntimeError(f"K3 disagrees with its plain version: {err.tolist()} > {K3_TOL} * {scale.tolist()}")
+    res["max_abs_err"] = float(err.max())
+    return res
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -238,13 +569,29 @@ def main() -> int:
 
     phase_build()
     k1 = phase_kernel_k1()
-    launches = phase_mltps_gm("float32")
+    phase_mltps_gm("float32")
     phase_mltps_gm("float64")
+    k2 = phase_kernel_k2()
+    captured: dict = {}
+    launches = phase_mltps_b(captured)
+    k3 = phase_kernel_k3(captured)
+    k2cv = k2["shapes"]["cv"]
+    # no single PyTorch call grows a tree or evaluates a forest: library_ms null
     emit({"kernels": [{
         "name": "tps_grid", "route": "cuda", "source": "machisplin_tpu_torch/csrc/tps_grid.cu",
         "replaces": "machisplin_tpu/ops/pallas_tps.py:56", "launches": launches["tps_grid"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+    }, {
+        "name": "tree_grow", "route": "cuda", "source": "machisplin_tpu_torch/csrc/tree_grow.cu",
+        "replaces": "machisplin_tpu/ops/pallas_grow.py:69", "launches": launches["tree_grow"],
+        "max_abs_err": k2cv["max_abs_err"], "ms": k2cv["ms"], "plain_ms": k2cv["plain_ms"],
+        "bound_ms": k2cv["bound_ms"], "bound_by": k2cv["bound_by"], "library_ms": None,
+    }, {
+        "name": "forest_predict", "route": "cuda", "source": "machisplin_tpu_torch/csrc/forest_predict.cu",
+        "replaces": "machisplin_tpu/ops/pallas_forest.py:200", "launches": launches["forest_predict"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

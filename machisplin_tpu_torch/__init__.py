@@ -3,9 +3,11 @@
 A second package beside the JAX one, ported slice by slice; it imports
 torch, numpy and scipy and nothing of JAX or of ``machisplin_tpu``.  Entry
 points take ``device=`` (default ``"cuda"``, which raises without a GPU).
-The TPS grid prediction runs a hand-written CUDA kernel (``csrc/``, built
-with nvcc at first use) on CUDA tensors and its plain PyTorch version on CPU
-tensors.  This slice runs ``mltps`` over the GAM + MARS pool.
+Three hand-written CUDA kernels (``csrc/``, built with nvcc at first use)
+run on CUDA tensors, their plain PyTorch versions on CPU tensors: the TPS
+grid prediction (K1), the boosting-tree grower (K2) and the forest
+bin-interval predictor (K3).  ``mltps`` runs over the BRT, GAM and MARS
+letters.
 """
 from .utils.precision import highest_precision
 

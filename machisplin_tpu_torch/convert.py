@@ -9,12 +9,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.brt import BRTState
 from .models.gam import GAMState
+from .models.gbm_step import GBMStepResult
 from .models.mars import MARSState
+from .models.trees import Tree
 from .ops.tps import TPSModel
 from .utils import resolve_device
 
-__all__ = ["tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy"]
+__all__ = [
+    "tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy",
+    "tree_from_numpy", "brt_state_from_numpy", "gbm_result_from_numpy",
+]
 
 
 def _fields(d) -> dict:
@@ -47,3 +53,36 @@ def mars_state_from_numpy(d, dtype=torch.float64, device="cuda") -> MARSState:
     out = {k: _t(f[k], dtype, device) for k in MARSState._fields if k != "vars"}
     out["vars"] = torch.as_tensor(np.array(f["vars"]), dtype=torch.int64, device=resolve_device(device))
     return MARSState(**out)
+
+
+def tree_from_numpy(d, dtype=torch.float32, device="cuda") -> Tree:
+    """Tree from the JAX ``Tree`` fields: feat/left/right as int64, the rest
+    (thr, internal, value, var_gain) in ``dtype``."""
+    f = _fields(d)
+    dev = resolve_device(device)
+    ints = ("feat", "left", "right")
+    return Tree(**{
+        k: torch.as_tensor(np.array(f[k]), dtype=torch.int64 if k in ints else dtype, device=dev)
+        for k in Tree._fields
+    })
+
+
+def brt_state_from_numpy(d, dtype=torch.float32, device="cuda") -> BRTState:
+    """BRTState from the JAX ``BRTState`` fields (its ``trees`` a Tree of
+    arrays, ``n_splits`` an int or a 0-d array)."""
+    f = _fields(d)
+    out = {k: _t(f[k], dtype, device) for k in BRTState._fields if k not in ("trees", "n_splits")}
+    return BRTState(trees=tree_from_numpy(f["trees"], dtype, device), n_splits=int(np.asarray(f["n_splits"])), **out)
+
+
+def gbm_result_from_numpy(d, dtype=torch.float32, device="cuda") -> GBMStepResult:
+    """GBMStepResult from the JAX ``GBMStepResult`` fields; the CV curves
+    come along as tensors, the statistics fields as they are."""
+    f = _fields(d)
+    out = dict(f)
+    out["final"] = brt_state_from_numpy(f["final"], dtype, device)
+    out["best_trees"] = int(np.asarray(f["best_trees"]))
+    out["trees_fitted"] = int(np.asarray(f["trees_fitted"]))
+    for k in ("cv_deviance", "cv_deviance_se"):
+        out[k] = _t(f[k], dtype, device)
+    return GBMStepResult(**{k: out[k] for k in GBMStepResult._fields if k in out})

@@ -7,8 +7,10 @@ algorithm.  Above 4000 rows the split is INVERTED — train on one fold, test
 on the other nine (V73:227-232).
 
 Every (response, fold) model of a letter trains in one batched call: the
-0/1 train masks ride a leading batch axis of the model's ``sample_weight``.
-This slice ports letters ``g`` (GAM) and ``m`` (MARS).
+0/1 train masks ride a leading batch axis of the model's ``sample_weight``;
+for BRT (``b``) every (response, fold) pair is one outer chain of the
+batched gbm.step (``models/gbm_step.fit_outer_batched``, kernel K2).
+Letters ported so far: ``b`` (BRT), ``g`` (GAM) and ``m`` (MARS).
 """
 from __future__ import annotations
 
@@ -19,17 +21,16 @@ import time
 import numpy as np
 import torch
 
-from ..models import gam, mars
+from ..models import gam, gbm_step, mars
 from .kfold import fold_masks, kfold
 
 __all__ = ["CVConfig", "run_cv", "residual_matrix"]
 
 log = logging.getLogger("machisplin_tpu_torch.cv")
 
-PORTED_LETTERS = "gm"
+PORTED_LETTERS = "bgm"
 _LATER = {
-    "b": "the gbm.step + tree-grower slice (kernel K2)",
-    "r": "the random-forest slice (kernel K3)",
+    "r": "the random-forest slice",
     "n": "the neural-network slice (optax L-BFGS port)",
     "v": "the SVM slice",
 }
@@ -52,6 +53,12 @@ class CVConfig:
 
     n_folds: int = 10
     invert_threshold: int = 4000
+    brt: dict = dataclasses.field(
+        default_factory=lambda: dict(
+            tree_complexity=25, learning_rate=0.01, bag_fraction=0.5,
+            step_size=50, max_trees=10000,
+        )
+    )
     mars: dict = dataclasses.field(default_factory=dict)
     gam: dict = dataclasses.field(default_factory=dict)
 
@@ -64,7 +71,8 @@ def run_cv(
 
     ``y`` is (n,) for one response or (n, R) for a batch; a batch returns
     {letter: (R, n_concat)}.  ``folds`` injects the (R, n) fold ids; without
-    it they are drawn per response from ``generator``.
+    it they are drawn per response from ``generator``, which also seeds the
+    BRT letter's fold selectors and bag draws.
     """
     require_ported(algorithms)
     config = config or CVConfig()
@@ -93,6 +101,13 @@ def run_cv(
         t0 = time.perf_counter()
         preds["m"] = mars.predict(mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x)
         log.info("cv letter m done in %.1f s", time.perf_counter() - t0)
+    if "b" in algorithms:
+        t0 = time.perf_counter()
+        # every (response, outer fold) gbm.step run is one outer chain of a
+        # single batched curve: R x K x K boosting chains per K2 launch
+        preds_b, _ = gbm_step.fit_outer_batched(x, flat_y, flat_w, generator=generator, **config.brt)
+        preds["b"] = preds_b.to(x.dtype)
+        log.info("cv letter b done in %.1f s", time.perf_counter() - t0)
 
     # fold-major concatenation of test residuals (V73:255-319), per response
     test_np = test_w.cpu().numpy() > 0

@@ -1,0 +1,469 @@
+"""gbm.step — CV-based selection of the boosted-tree count, batched over
+chains (counterpart of ``machisplin_tpu/models/gbm_step.py``, its
+global-bins gaussian path).
+
+The selection rules are those of the vendored Elith/Leathwick gbm.step
+(machisplin.gbm.step, V73:1660-2239):
+
+* k-fold selector: rep(1..n_folds) over the rows, randomly shuffled
+  (V73:1749-1751);
+* boosting grown in ``step_size``-tree cycles, recording the mean holdout
+  deviance of the fold models at each checkpoint (V73:1884-1967);
+* the "restart with a smaller learning rate" rule when holdout deviance
+  rises within the first 4 cycles (V73:1948-1955), automated at lr/2;
+* stop when the mean of the last 10 checkpoints improves on the
+  overlapping 11 before them by no more than ``tolerance`` (auto = 0.001 x
+  the mean total deviance, V73:1957-1961), or at ``max_trees``;
+* best.trees = the first checkpoint at the minimum (V73:1978-1983), then a
+  refit on the training rows with best.trees trees (V73:2100-2124).
+
+Every chain — (outer fold, inner fold) pairs in the CV, (response, inner
+fold) pairs in the finals — grows on ONE table of full-data quantile bins,
+so one launch of kernel K2 (``ops/tree_grow.py``) advances all of them by a
+tree.  Chains are float32, as K2's are.
+
+Randomness can be injected: ``selectors=`` fixes the fold memberships and
+``bags=`` the bag draws (the JAX package's threefry streams cannot be drawn
+in torch; the parity tests rebuild them and pass them in).  Otherwise both
+come from a ``torch.Generator``.
+
+Not ported yet (NotImplementedError names the later slice): the serial
+``fit`` with families, deviance, offset and monotone constraints; the
+shared- and per-fold-bins branches; ``statistics=True``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.tree_grow import gbm_tree_update, prepare_bins
+from . import brt
+from .trees import Tree, bin_data, edges_lookup, make_bins
+
+__all__ = [
+    "GBMStepResult", "MultiCurve", "stopping_fired", "best_trees_from_curve",
+    "fit_outer_batched", "fit_multi", "fit", "predict", "importance",
+]
+
+_LATER_SERIAL = (
+    "the serial gbm.step fit (families, deviance, offset, monotone constraints) "
+    "comes with a later slice of the port"
+)
+_LATER_BINS = "only global_bins=True is ported; the shared and per-fold bins branches come with a later slice"
+
+
+class GBMStepResult(NamedTuple):
+    final: brt.BRTState
+    best_trees: int
+    trees_fitted: int            # how many trees the CV loop actually grew
+    cv_deviance: torch.Tensor    # (max_checkpoints,) mean holdout deviance (inf = not reached)
+    cv_deviance_se: torch.Tensor  # (max_checkpoints,) between-fold standard errors
+    family: str = "gaussian"
+    learning_rate: float | None = None   # rate actually used (after restarts)
+    restarts: int = 0                    # automated lr/2 restarts (V73:1948-1955)
+    selector: np.ndarray | None = None   # (n,) fold membership (keep.fold.vector)
+    training_deviance: Any = None        # the CV/self statistics fields of the
+    fitted: Any = None                   # JAX package's result; filled only by
+    residuals: Any = None                # its statistics=True path, which is
+    fitted_vars: Any = None              # not ported yet
+    fold_fit: Any = None
+    self_statistics: Any = None
+    cv_statistics: Any = None
+
+
+class MultiCurve(NamedTuple):
+    stopped: np.ndarray           # (F,) stopping checkpoint per outer chain
+    dev: np.ndarray               # (max_cp, F, K) holdout deviance (inf pad), float64
+    edges: torch.Tensor           # (p, nb - 1) global bin edges
+    xb: torch.Tensor              # (n, p) binned data
+
+
+def stopping_fired(mean_curve, tolerance, win: int = 10):
+    """The reference's stopping test at the LAST checkpoint of ``mean_curve``
+    (V73:1957-1961): with j checkpoints, test1 = mean of the last ``win``,
+    test2 = mean of the ``win + 1`` before and overlapping them; fires when
+    test2 - test1 <= tolerance, armed once 2 * win checkpoints exist.
+    ``mean_curve`` (ncp, ...); returns (...) bool."""
+    mean_curve = np.asarray(mean_curve)
+    ncp = mean_curve.shape[0]
+    if ncp < 2 * win:
+        return np.zeros(mean_curve.shape[1:], bool)
+    test1 = mean_curve[ncp - win :].mean(axis=0)
+    test2 = mean_curve[ncp - 2 * win : ncp - win + 1].mean(axis=0)
+    return (test2 - test1) <= tolerance
+
+
+def best_trees_from_curve(mean_curve, stopped, step_size: int) -> int:
+    """best.trees: the first checkpoint at the minimum mean holdout deviance
+    among those grown before stopping (V73:1978-1983)."""
+    j_f = max(int(stopped), 1)
+    return (int(np.argmin(np.asarray(mean_curve)[:j_f])) + 1) * step_size
+
+
+def _seed(generator: torch.Generator | None) -> int:
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
+def _make_selector(generator, y, w, n_folds):
+    """Fold membership, host-side: rep(0..k-1) shuffled over the active rows
+    (V73:1749-1751), then over the inactive ones (gaussian: no
+    prevalence stratification).  The shuffle is numpy's, seeded from
+    ``generator``."""
+    y = np.asarray(y)
+    w = np.asarray(w)
+    rng = np.random.default_rng(_seed(generator))
+    selector = np.zeros(y.shape[0], np.int32)
+
+    def assign(mask):
+        m = int(mask.sum())
+        if m:
+            selector[mask] = (np.arange(m) % n_folds).astype(np.int32)[rng.permutation(m)]
+
+    active = w > 0
+    assign(active)
+    assign(~active)
+    return selector
+
+
+def _draw_selectors(generator, w_outer, n_folds):
+    """(F, n) fold memberships, one per outer chain: rep(0..k-1) over the
+    rows ordered by a uniform draw, inactive rows last."""
+    f_outer, n = w_outer.shape
+    g = torch.Generator(device=w_outer.device)
+    g.manual_seed(_seed(generator))
+    u = torch.rand((f_outer, n), generator=g, device=w_outer.device, dtype=torch.float64)
+    order = torch.argsort(u + (w_outer <= 0).to(torch.float64) * 10.0, dim=1)
+    seq = (torch.arange(n, device=w_outer.device) % n_folds).expand(f_outer, n)
+    return torch.zeros((f_outer, n), dtype=torch.int64, device=w_outer.device).scatter_(1, order, seq)
+
+
+def _random_bags(generator, bag_fraction: float, shape, device, block: int):
+    """The default ``bags``: tree t's 0/1 bag mask of ``shape``, drawn
+    ``block`` trees at a time on ``device`` from a generator seeded by
+    ``generator``.  Trees are asked for in order."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_seed(generator))
+    state = {"t0": None, "draw": None}
+
+    def bags(t: int) -> torch.Tensor:
+        t0 = t - t % block
+        if state["t0"] != t0:
+            state["t0"] = t0
+            state["draw"] = torch.rand((block,) + tuple(shape), generator=g, device=device) < bag_fraction
+        return state["draw"][t - t0]
+
+    return bags
+
+
+def _grow_inputs(x, n_bins):
+    """Global bins and K2's inputs made from them (``prepare_bins``)."""
+    edges = make_bins(x, n_bins)                              # (p, nb - 1)
+    xb = bin_data(x, edges)                                   # (n, p)
+    return (edges, xb) + prepare_bins(xb, n_bins)
+
+
+def _cv_deviance_curve_multi(
+    x, y, w_outer, *, n_folds, n_splits, lr, bag_fraction, min_leaf, step_size, max_trees,
+    tolerance, n_bins, selectors=None, global_bins=True, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
+) -> MultiCurve:
+    """All OUTER chains' gbm.step CV curves, batched: F x K boosting chains
+    advance one K2 launch per tree, with the checkpoint/stop bookkeeping on
+    the host; each outer chain freezes at its own stopping checkpoint.
+
+    w_outer (F, n) training masks; ``y`` (n,) or (F, n); ``selectors``
+    (F, n) inner-fold ids (drawn from ``generator`` when None); ``bags(t)``
+    the (F, K, n) or (F * K, n) 0/1 bag draw of tree t (t counts from 0
+    over the whole curve), multiplied by the inner training masks."""
+    if not global_bins:
+        raise NotImplementedError(_LATER_BINS)
+    x = torch.as_tensor(x)
+    dev_ = x.device
+    n, p = x.shape
+    w_outer = torch.as_tensor(w_outer, device=dev_).to(x.dtype)
+    f_outer = w_outer.shape[0]
+    y = torch.as_tensor(y, device=dev_).to(x.dtype)
+    if y.ndim == 1:
+        y = y[None, :].expand(f_outer, n)
+    if selectors is None:
+        selectors = _draw_selectors(generator, w_outer, n_folds)
+    selectors = torch.as_tensor(selectors, device=dev_).long()
+    fold_ids = torch.arange(n_folds, device=dev_)
+    train_w = (selectors[:, None, :] != fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
+    test_w = (selectors[:, None, :] == fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
+    edges, xb, xbt, cum1h = _grow_inputs(x, n_bins)
+    test_sum = test_w.sum(2).clamp_min(1.0)
+    train_sum = train_w.sum(2).clamp_min(1.0)
+    f0 = (train_w * y[:, None, :]).sum(2) / train_sum          # (F, K)
+
+    c = f_outer * n_folds
+    f32 = torch.float32
+    y_flat = y[:, None, :].expand(f_outer, n_folds, n).reshape(c, n).to(f32).contiguous()
+    tw_flat = train_w.reshape(c, n).to(f32)
+    fm = f0[:, :, None].expand(f_outer, n_folds, n).reshape(c, n).to(f32).contiguous()
+    y32, test_w32, test_sum32 = y.to(f32), test_w.to(f32), test_sum.to(f32)
+    if bags is None:
+        bags = _random_bags(generator, bag_fraction, (c, n), dev_, step_size)
+
+    max_cp = max_trees // step_size
+    win = min(10, max_cp)
+    dev = np.full((max_cp, f_outer, n_folds), np.inf, np.float64)
+    stopped = np.full((f_outer,), max_cp + 1, np.int64)
+    j = t = 0
+    while j < max_cp and np.any(stopped > max_cp):
+        for _ in range(step_size):
+            bag = torch.as_tensor(bags(t), device=dev_).reshape(c, n).to(f32) * tw_flat
+            fm = gbm_tree_update(xbt, cum1h, y_flat, fm, bag, n_splits=n_splits, nb=n_bins,
+                                 min_leaf=min_leaf, lr=lr)
+            t += 1
+        resid = y32[:, None, :] - fm.reshape(f_outer, n_folds, n)
+        dev[j] = ((test_w32 * resid**2).sum(2) / test_sum32).cpu().numpy()
+        fire = stopping_fired(dev[: j + 1].mean(axis=2), tolerance, win=win) & (stopped > max_cp)
+        stopped[fire] = j + 1
+        j += 1
+    return MultiCurve(np.minimum(stopped, j), dev, edges, xb)
+
+
+def _final_fits_global(
+    x, ycols, best_trees, *, budget, n_splits, lr_vec, bag_fraction, min_leaf, n_bins,
+    sample_w=None, with_deviance=False, emit_trees=False, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
+) -> dict:
+    """All chains' gaussian final refits, one K2 launch per tree under the
+    global bins.  K2 grows at lr = 1 and the loop here takes
+    ``f += lr_c * act_c * (f_new - f)``, which applies per-chain learning
+    rates (fit_multi's restarts) and the best.trees cut (trees past it
+    still grow on the frozen residuals and add nothing).  ``bags(t)`` gives
+    the (C, n) 0/1 bag draw of tree t, multiplied by ``sample_w``.
+
+    Returns a dict: f0 (C,), train_fit (C, n), tree_active (C, budget),
+    edges; with ``emit_trees`` the trees' arrays (budget, C, .) feat,
+    thr_bin, internal, left, right, value, var_gain; with ``with_deviance``
+    train_deviance and holdout_deviance (budget, C)."""
+    x = torch.as_tensor(x)
+    dev_ = x.device
+    n, p = x.shape
+    f32 = torch.float32
+    ycols = torch.as_tensor(ycols, device=dev_).to(f32).contiguous()
+    c = ycols.shape[0]
+    w = torch.ones((c, n), dtype=f32, device=dev_) if sample_w is None else \
+        torch.as_tensor(sample_w, device=dev_).to(f32)
+    edges, xb, xbt, cum1h = _grow_inputs(x, n_bins)
+    lr_col = torch.as_tensor(np.asarray(lr_vec), device=dev_).to(f32)[:, None]
+    bt = torch.as_tensor(np.asarray(best_trees), device=dev_)
+    act = (torch.arange(budget, device=dev_)[None, :] < bt[:, None]).to(f32)   # (C, budget)
+    wsum = w.sum(1).clamp_min(1.0)
+    f0 = (w * ycols).sum(1) / wsum                                             # gaussian f0
+    test_w = (w <= 0).to(f32)
+    test_sum = test_w.sum(1).clamp_min(1.0)
+    if bags is None:
+        bags = _random_bags(generator, bag_fraction, (c, n), dev_, 50)
+
+    f = f0[:, None].expand(c, n).contiguous()
+    trees, tdev, hdev = [], [], []
+    for t in range(budget):
+        bag = torch.as_tensor(bags(t), device=dev_).reshape(c, n).to(f32) * w
+        out = gbm_tree_update(xbt, cum1h, ycols, f, bag, n_splits=n_splits, nb=n_bins,
+                              min_leaf=min_leaf, lr=1.0, emit_tree=emit_trees)
+        f_new = out[0] if emit_trees else out
+        f = f + (lr_col * act[:, t : t + 1]) * (f_new - f)
+        if emit_trees:
+            trees.append(out[1:])
+        if with_deviance:
+            r2 = (ycols - f) ** 2
+            tdev.append((w * r2).sum(1) / wsum)
+            hdev.append((test_w * r2).sum(1) / test_sum)
+    res = dict(f0=f0, train_fit=f, tree_active=act, edges=edges)
+    if emit_trees:
+        names = ("feat", "thr_bin", "internal", "left", "right", "value", "var_gain")
+        for k, name in enumerate(names):
+            res[name] = torch.stack([tr[k] for tr in trees])                   # (budget, C, .)
+    if with_deviance:
+        res["train_deviance"] = torch.stack(tdev)
+        res["holdout_deviance"] = torch.stack(hdev)
+    return res
+
+
+def _stage_bags(bags, stage):
+    return None if bags is None else bags(stage)
+
+
+def fit_outer_batched(
+    x, y, outer_train_w, *, tree_complexity: int = 25, learning_rate: float = 0.01,
+    bag_fraction: float = 0.5, n_folds: int = 10, step_size: int = 50, max_trees: int = 10000,
+    tolerance=None, min_leaf: float = 10.0, n_bins: int = 64, global_bins: bool = True,
+    selectors=None, bags: Callable | None = None, generator: torch.Generator | None = None,
+):
+    """gbm.step for ALL outer CV folds at once (the run_cv path; gaussian).
+
+    outer_train_w (F, n) per-outer-fold training masks; ``y`` (n,) or (F, n)
+    (several responses' runs batch as further chains).  Every chain's split
+    candidates come from ONE table of full-data quantiles (the JAX
+    package's ``global_bins`` deviation), all F chains in one curve.
+    Returns (predictions (F, n) float32 of each fold's best.trees refit at
+    every row, best_trees (F,) numpy).
+
+    Injection: ``selectors`` (F, n) inner-fold ids; ``bags(stage)`` returns
+    the per-tree bag callable of a stage, ``("curve", 0)`` for the CV curve
+    (see ``_cv_deviance_curve_multi``) and ``("final", budget)`` for the
+    refits of ``budget`` trees each (``_final_fits_global``)."""
+    if not global_bins:
+        raise NotImplementedError(_LATER_BINS)
+    x = torch.as_tensor(x)
+    dev_ = x.device
+    y = torch.as_tensor(y, device=dev_).to(x.dtype)
+    outer_train_w = torch.as_tensor(outer_train_w, device=dev_).to(x.dtype)
+    f_outer = outer_train_w.shape[0]
+    if y.ndim == 1:
+        y = y[None, :].expand(f_outer, y.shape[0])
+    if tolerance is None:
+        # 0.001 x each outer fold's total mean deviance (V73 "auto")
+        wsum = outer_train_w.sum(1).clamp_min(1.0)
+        ybar = (outer_train_w * y).sum(1) / wsum
+        tolerance = 0.001 * ((outer_train_w * (y - ybar[:, None]) ** 2).sum(1) / wsum).cpu().numpy()
+    curve = _cv_deviance_curve_multi(
+        x, y, outer_train_w, n_folds=n_folds, n_splits=tree_complexity, lr=learning_rate,
+        bag_fraction=bag_fraction, min_leaf=min_leaf, step_size=step_size, max_trees=max_trees,
+        tolerance=tolerance, n_bins=n_bins, selectors=selectors,
+        bags=_stage_bags(bags, ("curve", 0)), generator=generator,
+    )
+    np_dtype = np.float32 if x.dtype == torch.float32 else np.float64
+    cv_mean = curve.dev.astype(np_dtype).mean(axis=2)          # (max_cp, F)
+    best_trees = np.asarray(
+        [best_trees_from_curve(cv_mean[:, f], curve.stopped[f], step_size) for f in range(f_outer)],
+        np.int64,
+    )
+    budget = int(-(-best_trees.max() // step_size) * step_size)
+    res = _final_fits_global(
+        x, y, best_trees, budget=budget, n_splits=tree_complexity,
+        lr_vec=np.full(f_outer, learning_rate), bag_fraction=bag_fraction, min_leaf=min_leaf,
+        n_bins=n_bins, sample_w=outer_train_w, bags=_stage_bags(bags, ("final", budget)), generator=generator,
+    )
+    return res["train_fit"], best_trees
+
+
+def fit_multi(
+    x, ycols, *, tree_complexity: int = 5, learning_rate: float = 0.001, bag_fraction: float = 0.5,
+    n_folds: int = 10, step_size: int = 50, max_trees: int = 10000, tolerance=None,
+    min_leaf: float = 10.0, n_bins: int = 64, max_restarts: int = 3, statistics: bool = False,
+    global_bins: bool = True, selectors=None, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
+) -> list:
+    """gbm.step final fits for SEVERAL responses (ycols (n, R); gaussian,
+    unweighted rows — mltps's final-fit case, V73:447/493), batched: every
+    response's K inner-fold chains advance in the same K2 launches, stopping
+    and the lr/2 restart rule resolve per response on the host (restarted
+    responses re-enter a later curve, grouped by their current rate), and
+    the refits of all responses run as one batch with ``emit_trees``.
+
+    ``selectors`` (R, n) fold ids (drawn per response with
+    ``_make_selector`` when None); ``bags(stage)`` as in
+    ``fit_outer_batched`` with stages ``("curve", group, restarts)`` —
+    ``group`` the tuple of response indices in that curve, ``restarts`` the
+    restart count of its first — and ``("final", budget)``.
+
+    Returns R GBMStepResult; each ``final`` carries its trees with raw
+    thresholds ``edges[feat, thr_bin]``."""
+    if statistics:
+        raise NotImplementedError("fit_multi(statistics=True) comes with the serial gbm.step slice")
+    if not global_bins:
+        raise NotImplementedError(_LATER_BINS)
+    x = torch.as_tensor(x)
+    dev_ = x.device
+    n, p = x.shape
+    ycols = torch.as_tensor(ycols, device=dev_).to(x.dtype)
+    n_resp = int(ycols.shape[1])
+    y_np_all = ycols.cpu().numpy()
+    w_np = np.ones(n)
+    if selectors is None:
+        selectors = np.stack([_make_selector(generator, y_np_all[:, j], w_np, n_folds) for j in range(n_resp)])
+    selectors = np.asarray(selectors, np.int32)
+    total_dev = np.asarray([float(np.sum((y_np_all[:, j] - y_np_all[:, j].mean()) ** 2)) for j in range(n_resp)])
+    tol = 0.001 * total_dev / n if tolerance is None else np.full(n_resp, tolerance)
+    np_dtype = y_np_all.dtype
+
+    max_cp = max_trees // step_size
+    lr_used = np.full(n_resp, float(learning_rate))
+    restarts = np.zeros(n_resp, np.int64)
+    done: dict[int, dict] = {}
+    pending = list(range(n_resp))
+    while pending:
+        lr_g = lr_used[pending[0]]
+        group = [j for j in pending if lr_used[j] == lr_g]
+        curve = _cv_deviance_curve_multi(
+            x, ycols.T[group], torch.ones((len(group), n), dtype=x.dtype, device=dev_),
+            n_folds=n_folds, n_splits=tree_complexity, lr=float(lr_g), bag_fraction=bag_fraction,
+            min_leaf=min_leaf, step_size=step_size, max_trees=max_trees, tolerance=tol[group],
+            n_bins=n_bins, selectors=selectors[group],
+            bags=_stage_bags(bags, ("curve", tuple(group), int(restarts[group[0]]))), generator=generator,
+        )
+        dev32 = curve.dev.astype(np_dtype)
+        cv_mean = dev32.mean(axis=2)                            # (max_cp, group)
+        finished = []
+        for gi, j in enumerate(group):
+            j_stop = max(int(curve.stopped[gi]), 1)
+            cm = cv_mean[:j_stop, gi]
+            rose_early = any(jj < j_stop and cm[jj] > cm[jj - 1] for jj in (1, 2, 3))
+            if rose_early and restarts[j] < max_restarts:
+                restarts[j] += 1
+                lr_used[j] *= 0.5
+                continue
+            done[j] = dict(best_cp=int(np.argmin(cm)), j_stop=j_stop, dev=dev32[:j_stop, gi])
+            finished.append(j)
+        pending = [j for j in pending if j not in finished]
+
+    best_trees = np.asarray([(done[j]["best_cp"] + 1) * step_size for j in range(n_resp)], np.int64)
+    budget = int(max(step_size, -(-best_trees.max() // step_size) * step_size))
+    res = _final_fits_global(
+        x, ycols.T, best_trees, budget=budget, n_splits=tree_complexity, lr_vec=lr_used,
+        bag_fraction=bag_fraction, min_leaf=min_leaf, n_bins=n_bins, with_deviance=True,
+        emit_trees=True, bags=_stage_bags(bags, ("final", budget)), generator=generator,
+    )
+    edges = res["edges"]                                        # (p, nb - 1)
+    tr = lambda key: res[key].transpose(0, 1)                    # (R, budget, .)
+    feat = tr("feat").long()
+    dt = x.dtype
+    trees = Tree(
+        feat=feat, thr=edges_lookup(edges, feat, tr("thr_bin")).to(dt),
+        internal=tr("internal").to(dt), left=tr("left").long(), right=tr("right").long(),
+        value=tr("value").to(dt), var_gain=tr("var_gain").to(dt),
+    )
+    lr_t = torch.as_tensor(lr_used, device=dev_).to(dt)
+    results = []
+    for j in range(n_resp):
+        d = done[j]
+        state = brt.BRTState(
+            trees=Tree(*(a[j] for a in trees)), edges=edges, f0=res["f0"][j].to(dt), lr=lr_t[j],
+            n_splits=tree_complexity, tree_active=res["tree_active"][j].to(dt),
+            train_deviance=res["train_deviance"][:, j].to(dt),
+            holdout_deviance=res["holdout_deviance"][:, j].to(dt), train_fit=res["train_fit"][j].to(dt),
+        )
+        pad = np.full((max_cp,), np.inf, np_dtype)
+        cv_mean_j, cv_se_j = pad.copy(), pad.copy()
+        cv_mean_j[: d["j_stop"]] = d["dev"].mean(axis=1)
+        cv_se_j[: d["j_stop"]] = d["dev"].std(axis=1, ddof=1) / math.sqrt(n_folds)
+        results.append(GBMStepResult(
+            final=state, best_trees=int(best_trees[j]), trees_fitted=d["j_stop"] * step_size,
+            cv_deviance=torch.as_tensor(cv_mean_j), cv_deviance_se=torch.as_tensor(cv_se_j),
+            family="gaussian", learning_rate=float(lr_used[j]), restarts=int(restarts[j]),
+            selector=selectors[j],
+        ))
+    return results
+
+
+def fit(*args, **kwargs):
+    """The serial gbm.step (``gbm_step.fit`` of the JAX package)."""
+    raise NotImplementedError(_LATER_SERIAL)
+
+
+def predict(result: GBMStepResult, x, type: str = "link", tables=None) -> torch.Tensor:
+    """Boosted score at ``x``; for gaussian, the only family ported, the link
+    and response scales coincide."""
+    return brt.predict(result.final, x, tables=tables)
+
+
+def importance(result: GBMStepResult, names) -> dict:
+    return brt.importance(result.final, names)

@@ -1,0 +1,250 @@
+"""Decision-tree infrastructure for the boosted trees (counterpart of
+``machisplin_tpu/models/trees.py``, the parts the gbm.step path runs).
+
+Features are binned into per-feature quantile histograms (64 bins), so a
+split search is a scan over (feature, bin) statistics; trees are stored as
+flat arrays (feat, thr, internal, left, right, value) with the best-first
+slot layout of gbm's ``interaction.depth`` split budget: J splits, children
+of the k-th split in slots 2k+1 and 2k+2.
+
+``grow_bestfirst_trees_cumshared`` grows K trees at once from cumulative
+split statistics; it is the plain version of kernel K2
+(``ops/tree_grow.py``, ``csrc/tree_grow.cu``).  ``tree_assign`` and
+``forest_predict`` route points through the trees one level at a time, the
+plain oracle of kernel K3 (``ops/forest.py``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = [
+    "Tree", "make_bins", "bin_data", "flat_bin_cum_onehot", "edges_lookup",
+    "grow_bestfirst_trees_cumshared", "tree_assign", "forest_predict",
+]
+
+
+class Tree(NamedTuple):
+    feat: torch.Tensor      # (..., N) int split feature (0 where leaf)
+    thr: torch.Tensor       # (..., N) raw-scale threshold; go left iff x <= thr
+    internal: torch.Tensor  # (..., N) 1.0 if split node
+    left: torch.Tensor      # (..., N) int child ids
+    right: torch.Tensor     # (..., N)
+    value: torch.Tensor     # (..., N) node value (leaf prediction)
+    var_gain: torch.Tensor  # (..., p) summed split gain per feature (importance)
+
+
+def make_bins(x, n_bins: int = 64) -> torch.Tensor:
+    """Per-feature quantile bin edges, (p, n_bins - 1), in ``x``'s dtype.
+
+    Linear interpolation between order statistics with the positions and
+    weights in float64, as ``jnp.quantile`` computes them with x64 on."""
+    x = torch.as_tensor(x)
+    n = x.shape[0]
+    qs = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float64, device=x.device)[1:-1]
+    pos = qs * float(n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    low = low.clamp(0, n - 1).long()
+    high = high.clamp(0, n - 1).long()
+    xs = torch.sort(x, dim=0).values.to(torch.float64)
+    out = xs[low] * lw[:, None] + xs[high] * hw[:, None]      # (nb-1, p)
+    return out.to(x.dtype).T.contiguous()
+
+
+def bin_data(x, edges) -> torch.Tensor:
+    """Bin index per (sample, feature): the number of edges strictly below x,
+    (n, p) int64."""
+    x = torch.as_tensor(x)
+    return (x[:, :, None] > edges[None, :, :]).sum(dim=2)
+
+
+def flat_bin_cum_onehot(xb, nb: int) -> torch.Tensor:
+    """(n, p * nb) bfloat16 cumulative one-hot: 1 iff ``xb[i, f] <= b``.
+
+    Contracting weights against it gives left-cumulative split statistics:
+    ``(w @ cum1h)[f * nb + b]`` is the sum of w over rows with bin_f <= b.
+    0/1 is exact in bfloat16."""
+    n, p = xb.shape
+    b = torch.arange(nb, dtype=xb.dtype, device=xb.device)
+    return (xb[:, :, None] <= b).to(torch.bfloat16).reshape(n, p * nb)
+
+
+def edges_lookup(edges, feat, thr_bin) -> torch.Tensor:
+    """``edges[feat, clip(thr_bin)]``: the raw threshold of a bin split."""
+    nbm1 = edges.shape[1]
+    return edges[feat.long(), thr_bin.long().clamp(0, nbm1 - 1)]
+
+
+def _hist_cum(a, cum1h):
+    """(r, n) @ (n, L) in the gbm histogram accuracy class: ``a`` splits into
+    bfloat16 hi and lo halves, each contracts in float32 against the exact
+    0/1 table, and the two float32 sums add (~1e-5 relative).  These sums
+    only rank split candidates; node totals and leaf values are exact."""
+    hi = a.to(torch.bfloat16)
+    lo = (a - hi.to(a.dtype)).to(torch.bfloat16)
+    c = cum1h.to(torch.float32)
+    return (hi.to(torch.float32) @ c + lo.to(torch.float32) @ c).to(a.dtype)
+
+
+def _best_splits_cum(clw, clwy, tw, twy, min_leaf):
+    """Best (feature, bin) per row of (R, p, nb) cumulative stats with (R, 1, 1)
+    totals: gbm's squared-error gain, candidates with at least ``min_leaf``
+    weight on both sides and a non-empty right side (b < nb - 1); the first
+    maximum in flattened (feature, bin) order wins a tie."""
+    eps = 1e-12
+    rw, rwy = tw - clw, twy - clwy
+    gain = clwy * clwy / clw.clamp_min(eps) + rwy * rwy / rw.clamp_min(eps) - twy * twy / tw.clamp_min(eps)
+    r, p, nb = gain.shape
+    pos = torch.arange(nb, device=gain.device)
+    ok = (clw >= min_leaf) & (rw >= min_leaf) & (pos < nb - 1)
+    flat = torch.where(ok, gain, torch.full((), -torch.inf, dtype=gain.dtype, device=gain.device))
+    flat = flat.reshape(r, p * nb)
+    best = torch.argmax(flat, dim=1)
+    return flat.max(dim=1).values, best // nb, best % nb
+
+
+def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float, bin_cum1h,
+                                   return_tree: bool = False):
+    """K best-first regression trees at once from cumulative statistics.
+
+    ``xb`` (n, p) bins shared by every tree; ``ys`` (K, n) targets (boosting
+    residuals); ``ws`` (K, n) row weights (0 = out of bag); ``bin_cum1h``
+    the (n, p * nb) ``flat_bin_cum_onehot`` of ``xb``.  Each step splits the
+    node of largest gain (ties: lowest slot) if that gain exceeds 1e-9, into
+    slots 2k+1 (bin <= thr) and 2k+2.  Split statistics come from
+    ``_hist_cum``; node totals are exact row sums taken when a node is
+    created, and a leaf's value is swy / max(sw, 1e-12).
+
+    Returns (value (K, 2J+1), cur (K, n) final node of every row), plus
+    (feat, thr_bin, internal, left, right, var_gain) with ``return_tree``.
+    """
+    n, p = xb.shape
+    k_chains = ws.shape[0]
+    dtype, dev = ys.dtype, ys.device
+    n_total = 2 * n_splits + 1
+    nb = bin_cum1h.shape[1] // p
+    neg = torch.full((), -torch.inf, dtype=dtype, device=dev)
+    iota_nodes = torch.arange(n_total, device=dev)
+    p_iota = torch.arange(p, device=dev)
+    rows = torch.arange(k_chains, device=dev)
+    wys = ws * ys
+
+    croot = _hist_cum(torch.cat([ws, wys], dim=0), bin_cum1h)
+    tw = ws.sum(dim=1)
+    twy = wys.sum(dim=1)
+    g0, f0, b0 = _best_splits_cum(
+        croot[:k_chains].reshape(k_chains, p, nb), croot[k_chains:].reshape(k_chains, p, nb),
+        tw[:, None, None], twy[:, None, None], min_leaf,
+    )
+    node_gain = torch.full((k_chains, n_total), -torch.inf, dtype=dtype, device=dev)
+    node_feat = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
+    node_bin = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
+    node_sw = torch.zeros((k_chains, n_total), dtype=dtype, device=dev)
+    node_swy = torch.zeros((k_chains, n_total), dtype=dtype, device=dev)
+    node_gain[:, 0], node_feat[:, 0], node_bin[:, 0] = g0, f0, b0
+    node_sw[:, 0], node_swy[:, 0] = tw, twy
+    cur = torch.zeros((k_chains, n), dtype=torch.int64, device=dev)
+    xbt = xb.T
+    if return_tree:
+        t_feat = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
+        t_thr = torch.zeros_like(t_feat)
+        t_int = torch.zeros((k_chains, n_total), dtype=dtype, device=dev)
+        t_left = torch.zeros_like(t_feat)
+        t_right = torch.zeros_like(t_feat)
+        t_vg = torch.zeros((k_chains, p), dtype=dtype, device=dev)
+
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    for k in range(n_splits):
+        q = torch.argmax(node_gain, dim=1)                   # (K,) first max
+        gq = node_gain[rows, q]
+        ok = gq > 1e-9
+        bfq = node_feat[rows, q]
+        bbq = node_bin[rows, q]
+        lid, rid = 2 * k + 1, 2 * k + 2
+        sample_bin = xbt[bfq]                                # (K, n)
+        in_parent = ok[:, None] & (cur == q[:, None])
+        go_left = in_parent & (sample_bin <= bbq[:, None])
+        lm = go_left.to(dtype)
+        pm = in_parent.to(dtype)
+        # left and parent cumulative stats in one contraction; the right
+        # child's by subtraction; totals by exact row sums
+        h = _hist_cum(torch.cat([ws * lm, wys * lm, ws * pm, wys * pm], dim=0), bin_cum1h)
+        clw, clwy = h[:k_chains], h[k_chains : 2 * k_chains]
+        cpw, cpwy = h[2 * k_chains : 3 * k_chains], h[3 * k_chains :]
+        tl_w = (ws * lm).sum(dim=1)
+        tp_w = (ws * pm).sum(dim=1)
+        tl_wy = (wys * lm).sum(dim=1)
+        tp_wy = (wys * pm).sum(dim=1)
+        cw = torch.cat([clw, cpw - clw], dim=0).reshape(2 * k_chains, p, nb)
+        cwy = torch.cat([clwy, cpwy - clwy], dim=0).reshape(2 * k_chains, p, nb)
+        tws = torch.cat([tl_w, tp_w - tl_w])
+        twys = torch.cat([tl_wy, tp_wy - tl_wy])
+        cg, cf, cb = _best_splits_cum(cw, cwy, tws[:, None, None], twys[:, None, None], min_leaf)
+        node_gain = torch.where(iota_nodes[None, :] == q[:, None], neg, node_gain)
+        node_gain[:, lid] = torch.where(ok, cg[:k_chains], neg)
+        node_gain[:, rid] = torch.where(ok, cg[k_chains:], neg)
+        node_feat[:, lid], node_feat[:, rid] = cf[:k_chains], cf[k_chains:]
+        node_bin[:, lid], node_bin[:, rid] = cb[:k_chains], cb[k_chains:]
+        node_sw[:, lid] = torch.where(ok, tl_w, zero)
+        node_sw[:, rid] = torch.where(ok, tp_w - tl_w, zero)
+        node_swy[:, lid] = torch.where(ok, tl_wy, zero)
+        node_swy[:, rid] = torch.where(ok, tp_wy - tl_wy, zero)
+        cur = torch.where(in_parent, torch.where(go_left, lid, rid), cur)
+        if return_tree:
+            upd = (iota_nodes[None, :] == q[:, None]) & ok[:, None]
+            t_feat = torch.where(upd, bfq[:, None], t_feat)
+            t_thr = torch.where(upd, bbq[:, None], t_thr)
+            t_int = torch.where(upd, torch.ones((), dtype=dtype, device=dev), t_int)
+            t_left = torch.where(upd, lid, t_left)
+            t_right = torch.where(upd, rid, t_right)
+            t_vg = t_vg + torch.where(ok[:, None] & (p_iota[None, :] == bfq[:, None]), gq[:, None], zero)
+
+    value = node_swy / node_sw.clamp_min(1e-12)
+    if return_tree:
+        return value, cur, (t_feat, t_thr, t_int, t_left, t_right, t_vg)
+    return value, cur
+
+
+def tree_assign(trees: Tree, x, depth: int) -> torch.Tensor:
+    """Terminal node id of every (m, p) point in each of T stacked trees
+    ((T, N) arrays): (T, m), routed one level at a time for ``depth`` levels."""
+    x = torch.as_tensor(x)
+    t, m = trees.feat.shape[0], x.shape[0]
+    cur = torch.zeros((t, m), dtype=torch.int64, device=x.device)
+    cols = torch.arange(m, device=x.device)[None, :]
+    feat, left, right = trees.feat.long(), trees.left.long(), trees.right.long()
+    for _ in range(depth):
+        f = feat.gather(1, cur)
+        go = trees.internal.gather(1, cur) > 0
+        xv = x[cols, f]
+        nxt = torch.where(xv <= trees.thr.gather(1, cur).to(x.dtype), left.gather(1, cur), right.gather(1, cur))
+        cur = torch.where(go, nxt, cur)
+    return cur
+
+
+def forest_predict(trees: Tree, x, depth: int, weights=None, tree_chunk: int = 64,
+                   cell_block: int = 65536) -> torch.Tensor:
+    """Weighted sum over T stacked trees of each tree's value at (m, p)
+    points: (m,).  ``weights=None`` averages (random forest).  Trees and
+    cells are blocked so at most (tree_chunk, cell_block) routes exist."""
+    x = torch.as_tensor(x)
+    m = x.shape[0]
+    t_total = trees.feat.shape[0]
+    if weights is None:
+        w = torch.full((t_total,), 1.0 / t_total, dtype=x.dtype, device=x.device)
+    else:
+        w = torch.as_tensor(weights, device=x.device).to(x.dtype)
+    out = torch.zeros((m,), dtype=x.dtype, device=x.device)
+    for c0 in range(0, m, cell_block):
+        xb = x[c0 : c0 + cell_block]
+        acc = torch.zeros((xb.shape[0],), dtype=x.dtype, device=x.device)
+        for t0 in range(0, t_total, tree_chunk):
+            part = Tree(*(a[t0 : t0 + tree_chunk] for a in trees))
+            cur = tree_assign(part, xb, depth)
+            vals = part.value.to(x.dtype).gather(1, cur)          # (tc, mb)
+            acc = acc + w[t0 : t0 + tree_chunk] @ vals
+        out[c0 : c0 + cell_block] = acc
+    return out

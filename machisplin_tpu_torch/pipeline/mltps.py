@@ -18,8 +18,10 @@ part 4  linear-ramp feathering of the tile seams (V73:756-896);
 part 5  final = ensemble + error surface, station R^2, and the keep-the-
         correction-only-if-R^2-improves rule (V73:898-965).
 
-This slice ports the GAM (``g``) and MARS (``m``) letters; any other letter
-in the pool raises NotImplementedError naming the slice that brings it.
+The letters ported so far are BRT (``b``: batched gbm.step on kernel K2,
+and a merged-forest raster pass on kernel K3), GAM (``g``) and MARS (``m``);
+any other letter in the pool raises NotImplementedError naming the slice
+that brings it.
 """
 from __future__ import annotations
 
@@ -33,9 +35,11 @@ import torch
 from ..ensemble.cv import CVConfig, require_ported, residual_matrix, run_cv
 from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb
 from ..grid import GridSpec, Raster, crop, extract, lonlat_rasters, stack
-from ..models import gam, mars
+from ..models import gam, gbm_step, mars
 from ..models.base import LETTER_TO_NAME
+from ..models.trees import Tree
 from ..ops.feather import feather_blend
+from ..ops.forest import build_leaf_bins, predict_prepared, prepare_forest
 from ..ops.tps import TPSModel, tps_fit, tps_predict_grid
 from ..parallel.tiles import batched_tile_solve, pack_tiles
 from ..utils import resolve_device
@@ -51,6 +55,12 @@ class MLTPSConfig:
     """Pipeline hyperparameters; defaults mirror the reference call sites."""
 
     cv: CVConfig = dataclasses.field(default_factory=CVConfig)
+    final_brt: dict = dataclasses.field(
+        default_factory=lambda: dict(
+            tree_complexity=5, learning_rate=0.001, bag_fraction=0.5,
+            step_size=50, max_trees=10000,
+        )
+    )
     final_mars: dict = dataclasses.field(default_factory=dict)
     final_gam: dict = dataclasses.field(default_factory=dict)
     tps_tile_px: int = 1500          # V73:656-660
@@ -58,6 +68,9 @@ class MLTPSConfig:
     tps_mosaic_overlap: float = 0.025  # V73:680
     min_tile_points: int = 10        # V73:710
     tps_tile_chunk: int = 16         # tiles factorised per batched solve
+    # batch gbm.step final fits across responses; False (the serial fit) is
+    # reserved for the later slice that ports gbm_step.fit and raises until then
+    batch_final_brt: bool = True
     letters_pool: str | None = None  # restrict the algorithm pool (extension)
     predict_block_rows: int = 256
 
@@ -147,6 +160,47 @@ def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig):
         return fn, imps
     require_ported(letter)
     raise ValueError(letter)
+
+
+def _forest_tables(trees: Tree, n_feat: int):
+    """Bin-interval leaf tables of a forest (``ops.forest.build_leaf_bins``,
+    a host walk of the trees).  The port has no host tree predictor, so its
+    raster passes always take the forest predictor: K3 on the card, the
+    plain version on the CPU."""
+    return build_leaf_bins(Tree(*(a.cpu() for a in trees)), n_feat=n_feat)
+
+
+def _final_brt_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generator, timer):
+    """BRT final fits for SEVERAL responses (ycols (n, R), R > 1): batched
+    gbm.step (``fit_multi``), then ONE raster pass of all responses' forests
+    merged into one leaf table with an (T_total, R) weight matrix that zeroes
+    foreign trees (V73:447/493/497).  Each forest is trimmed to its
+    best.trees prefix first: later trees carry zero weight.  Station
+    predictions are the refits' own training fits.  Returns (surfaces
+    (H, W, R), station predictions (n, R), [importance dicts])."""
+    n_resp = ycols.shape[1]
+    with timer.phase(f"final_fit_b_x{n_resp}"):
+        results = gbm_step.fit_multi(x, ycols, generator=generator, **config.final_brt)
+    with timer.phase("importance_b"):
+        imps = [gbm_step.importance(r, names) for r in results]
+    nts = [max(int(r.best_trees), 1) for r in results]
+    merged = Tree(*(
+        torch.cat([a[:nt] for a, nt in zip(arrs, nts)], dim=0)
+        for arrs in zip(*[r.final.trees for r in results])
+    ))
+    wmat = torch.zeros((sum(nts), n_resp), dtype=torch.float32, device=x.device)
+    off = 0
+    for j, (nt, r) in enumerate(zip(nts, results)):
+        wmat[off : off + nt, j] = r.final.tree_active[:nt].to(torch.float32) * float(r.final.lr)
+        off += nt
+    f0s = torch.as_tensor([float(r.final.f0) for r in results], dtype=torch.float32, device=x.device)
+    with timer.phase("forest_tables_b"):
+        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1]), x.device)
+    bfn = lambda q: (predict_prepared(ftab, q) + f0s[None, :]).to(q.dtype)
+    with timer.phase(f"raster_predict_b_x{n_resp}"):
+        bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=n_resp)
+    bpt = torch.stack([r.final.train_fit for r in results], dim=1).to(x.dtype)
+    return bsurf, bpt, imps
 
 
 def _tps_tiles(grid: GridSpec, config: MLTPSConfig):
@@ -253,7 +307,10 @@ def mltps(
     """Main entry point; see the module docstring.
 
     ``folds``: optional (R, n) CV fold ids in [0, k) for the n stations left
-    after the NA drop; without them folds are drawn from ``generator``.
+    after the NA drop; without them folds are drawn from ``generator``,
+    which also seeds gbm.step's fold selectors and bag draws.
+    ``trouble``: the reference's BRT-only switch — every response keeps
+    "b" at weight 1 whatever the weight search finds (V73:446).
     ``device``: where the run happens (``"cuda"`` raises without a GPU).
     ``timer`` collects per-phase durations."""
     dev = resolve_device(device)
@@ -264,7 +321,9 @@ def mltps(
         letters_pool = "".join(l for l in letters_pool if l in config.letters_pool)
         if not letters_pool:
             raise ValueError(f"letters_pool {config.letters_pool!r} excludes every algorithm")
-    require_ported(letters_pool + ("b" if trouble else ""))
+    require_ported(letters_pool)
+    if trouble and "b" not in letters_pool:
+        raise ValueError("trouble=True fits BRT alone: the algorithm pool must include 'b'")
 
     with timer.phase("input_prep"):
         rast_stack, covar_names, coords, x_np, responses = _prepare_inputs(
@@ -290,10 +349,12 @@ def mltps(
         for i, name in enumerate(resp_names):
             rmat = residual_matrix({l: r[i] for l, r in cv_all.items()}, letters_pool)
             wres = optimize_weights_lbfgsb(rmat, letters_pool)
-            kept = dict(zip(wres.letters, wres.kept_weights))
-            log.info("layer %s kept: %s weights %s (%s%%)", name, wres.letters, wres.kept_weights, wres.percent_text)
+            # trouble: the reference's BRT-only switch keeps b at weight 1
+            mods_run = "b" if trouble else wres.letters
+            kept = {"b": 1.0} if trouble else dict(zip(wres.letters, wres.kept_weights))
+            log.info("layer %s kept: %s weights %s (%s%%)", name, mods_run, wres.kept_weights, wres.percent_text)
             wres_all.append(wres)
-            kept_all.append((wres.letters, kept))
+            kept_all.append((mods_run, kept))
 
     # part 2 — final fits, letter-major and batched across the responses
     # that keep the letter; each letter's surfaces go straight into
@@ -308,11 +369,19 @@ def mltps(
         if not sel:
             continue
         ycols = torch.as_tensor(np.stack([responses[resp_names[i]] for i in sel], axis=1), dtype=dtype, device=dev)
-        with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
-            bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config)
-        with timer.phase(f"raster_predict_{letter}_x{len(sel)}"):
-            bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=len(sel))
-        bpt = bfn(x)
+        if letter == "b":
+            if len(sel) < 2 or not config.batch_final_brt:
+                raise NotImplementedError(
+                    "BRT final fits of a single response take the serial gbm.step fit, "
+                    "which comes with a later slice of the port"
+                )
+            bsurf, bpt, imps = _final_brt_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
+        else:
+            with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
+                bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config)
+            with timer.phase(f"raster_predict_{letter}_x{len(sel)}"):
+                bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=len(sel))
+            bpt = bfn(x)
         for j, i in enumerate(sel):
             wgt = float(kept_all[i][1][letter])
             var_imps[i][letter] = imps[j]
@@ -324,7 +393,7 @@ def mltps(
 
     ens_rasters, res_finals = [], []
     for i, name in enumerate(resp_names):
-        total = wres_all[i].weight_total
+        total = wres_all[i].weight_total if not trouble else 1.0
         ens_rasters.append(Raster(pred_accs[i] / total, rast_stack.grid, (name,)))  # V73:619 quirk
         res_finals.append(res_accs[i].cpu().numpy().astype(np.float64) / total)    # V73:620
         pred_accs[i] = None

@@ -1,4 +1,5 @@
-"""Kernel K1 (the CUDA TPS grid kernel) against its plain PyTorch version.
+"""The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
+(tree grower) and K3 (forest predictor).
 
 These tests need a CUDA device and nvcc; they skip without them.  They import
 nothing of JAX, so they also run where JAX is not installed:
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from machisplin_tpu_torch import grid as tgrid
-from machisplin_tpu_torch.ops import tps as ttps, tps_grid as ttg
+from machisplin_tpu_torch.models import trees as ttrees
+from machisplin_tpu_torch.ops import forest as ttforest, tps as ttps, tps_grid as ttg, tree_grow as ttgrow
 
 pytestmark = pytest.mark.gpu
 
@@ -57,3 +59,102 @@ def test_k1_wrapper_checks_inputs(cuda):
     tab = ttg.grid_tables(model, g, torch.float64)
     with pytest.raises(TypeError):
         ttg.tps_grid_cuda(tab, g)
+
+
+def _k2_inputs(c, n, p, nb, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, p))
+    y = 2.0 * x[:, 0] + np.sin(4 * x[:, 1 % p]) + 0.1 * rng.standard_normal(n)
+    xt = torch.as_tensor(x, device=device)
+    xb = ttrees.bin_data(xt, ttrees.make_bins(xt, nb))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    ys = t(np.tile(y, (c, 1)))
+    fs = t(0.3 * rng.standard_normal((c, n)))
+    ws = t(rng.uniform(size=(c, n)) < 0.5)
+    return xb, ys, fs, ws
+
+
+@pytest.mark.parametrize("c,n,p,nb,n_splits", [
+    (7, 150, 3, 16, 4),       # a few chains, tiny
+    (200, 813, 5, 64, 25),    # the CV shape of the main path
+    (20, 813, 5, 64, 5),      # the finals' shape
+])
+def test_k2_matches_plain(cuda, c, n, p, nb, n_splits):
+    """Same trees as the plain version, except at near-ties of float32
+    summation order (relative gain gap <= 1e-5); f to 1e-5 of the residuals."""
+    xb, ys, fs, ws = _k2_inputs(c, n, p, nb, cuda)
+    kw = dict(n_splits=n_splits, nb=nb, min_leaf=10.0, lr=0.05, emit_tree=True)
+    before = ttgrow.LAUNCHES["tree_grow"]
+    got = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **kw)
+    torch.cuda.synchronize()
+    assert ttgrow.LAUNCHES["tree_grow"] - before == 1
+    want = ttgrow.gbm_tree_update_plain(xb.T, None, ys, fs, ws, **kw)
+    got = [a.cpu().numpy() for a in got]
+    want = [a.cpu().numpy() for a in want]
+    same = np.all([np.array_equal(g, w) for g, w in zip(got[1:6], want[1:6])], axis=0)
+    r = (ys - fs).cpu().numpy()
+    scale = float(np.abs(r).max())
+    for ch in range(c):
+        tree_g = [got[k][ch] for k in (1, 2, 3, 4)]
+        tree_w = [want[k][ch] for k in (1, 2, 3, 4)]
+        gap = ttgrow.near_tie_gap(xb.cpu().numpy(), r[ch], ws[ch].cpu().numpy(), tree_w, tree_g,
+                                  nb=nb, min_leaf=10.0)
+        assert gap is None or gap <= 1e-5, (ch, gap)
+        if gap is None:
+            np.testing.assert_allclose(got[0][ch], want[0][ch], rtol=0, atol=1e-5 * scale)
+    f_only = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **dict(kw, emit_tree=False))
+    np.testing.assert_array_equal(f_only.cpu().numpy(), got[0])
+
+
+@pytest.mark.parametrize("n_cols", [None, 2, 5])
+def test_k3_matches_plain(cuda, n_cols):
+    """Exact leaf membership counts, weighted sums to 1e-5 of sum |w v|."""
+    xb, ys, fs, ws = _k2_inputs(2, 400, 5, 64, cuda, seed=1)
+    kw = dict(n_splits=5, nb=64, min_leaf=10.0, lr=1.0, emit_tree=True)
+    trees = []
+    for _ in range(30):
+        out = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **kw)
+        trees.append(out[1:])
+        fs = fs + 0.1 * (out[0] - fs)
+    stack = [torch.cat([t[k] for t in trees]).cpu() for k in range(7)]
+    edges = ttrees.make_bins(torch.rand(400, 5, dtype=torch.float64), 64)
+    tree = ttrees.Tree(feat=stack[0].long(), thr=ttrees.edges_lookup(edges, stack[0], stack[1]).float(),
+                       internal=stack[2], left=stack[3].long(), right=stack[4].long(), value=stack[5],
+                       var_gain=stack[6])
+    n_t = tree.feat.shape[0]
+    rng = np.random.default_rng(2)
+    w = rng.uniform(size=n_t) if n_cols is None else rng.uniform(size=(n_t, n_cols))
+    tabs = ttforest.build_leaf_bins(tree, n_feat=5)
+    x = torch.rand((70_001, 5), dtype=torch.float32, device=cuda) * 1.2 - 0.1
+    ft = ttforest.prepare_forest(tree, torch.as_tensor(w), tabs, cuda)
+    before = ttforest.LAUNCHES["forest_predict"]
+    got = ttforest.forest_predict_cuda(ft, x)
+    torch.cuda.synchronize()
+    assert ttforest.LAUNCHES["forest_predict"] - before == -(-(n_cols or 1) // 4)
+    want = ttforest.forest_predict_plain(ft, x)
+    scale = ft.wv.abs().sum(0)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    ones = ft._replace(wv=torch.ones_like(ft.wv[:, :1]), offset=ft.offset[:1])
+    torch.testing.assert_close(ttforest.forest_predict_cuda(ones, x), ttforest.forest_predict_plain(ones, x),
+                               rtol=0, atol=0)
+    routed = ttrees.forest_predict(ttrees.Tree(*(a.to(cuda) for a in tree)), x[:2000], 5,
+                                   weights=torch.as_tensor(w if n_cols is None else w[:, 0], device=cuda).float())
+    full = ttforest.predict_prepared(ft, x[:2000])
+    full = full if n_cols is None else full[:, 0]
+    assert float((full - routed).abs().max()) <= 1e-5 * float(scale[0])
+
+
+def test_k3_refuses_cells_off_the_tables_device(cuda):
+    """predict_prepared never moves cells between the card and the host."""
+    tree = ttrees.Tree(feat=torch.zeros((1, 3), dtype=torch.long), thr=torch.tensor([[0.5, 0.0, 0.0]]),
+                       internal=torch.tensor([[1.0, 0.0, 0.0]]), left=torch.tensor([[1, 0, 0]]),
+                       right=torch.tensor([[2, 0, 0]]), value=torch.tensor([[0.0, -1.0, 1.0]]),
+                       var_gain=torch.zeros((1, 3)))
+    tabs = ttforest.build_leaf_bins(tree, n_feat=3)
+    x = torch.rand((64, 3))
+    before = ttforest.LAUNCHES["forest_predict"]
+    with pytest.raises(ValueError, match="tables on cpu"):
+        ttforest.predict_prepared(ttforest.prepare_forest(tree, torch.ones(1), tabs, "cpu"), x.to(cuda))
+    with pytest.raises(ValueError, match="tables on cuda"):
+        ttforest.predict_prepared(ttforest.prepare_forest(tree, torch.ones(1), tabs, cuda), x)
+    assert ttforest.LAUNCHES["forest_predict"] == before

@@ -195,8 +195,8 @@ def test_weight_keep_rule_matches_jax(rng):
 
 def test_unported_letters_raise():
     x = torch.zeros((40, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="gbm.step"):
-        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="bg")
+    with pytest.raises(NotImplementedError, match="neural-network"):
+        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="ng")
 
 
 def _port_sources():
@@ -227,7 +227,9 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['machisplin_tpu'] = None; "
         "import machisplin_tpu_torch, machisplin_tpu_torch.convert, "
-        "machisplin_tpu_torch.kernels.build, machisplin_tpu_torch.ops.tps_grid; "
+        "machisplin_tpu_torch.kernels.build, machisplin_tpu_torch.ops.tps_grid, "
+        "machisplin_tpu_torch.ops.tree_grow, machisplin_tpu_torch.ops.forest, "
+        "machisplin_tpu_torch.models.gbm_step, machisplin_tpu_torch.models.brt; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
