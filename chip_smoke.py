@@ -26,9 +26,12 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   emitting trees), at a first tree and after 300 boosting steps: every
   chain's tree the same, or parting at a near-tie (relative gain gap <=
   1e-5), and f within 1e-5 of the residuals' scale where the trees agree;
+  then a 50-tree cycle in one launch bit-identical to 50 one-tree launches,
+  and CUDA-event times per tree through the cycle entry;
 * ``mltps_b``: the slice's path, ``mltps(..., config=MLTPSConfig(
   letters_pool="b"))`` on the full grid (covariates as built, float32),
-  counting every kernel's launches (K1 = 6, K2 and K3 > 0), both responses
+  counting every kernel's launches (K1 = 6, K2 and K3 > 0, K2 in 50-tree
+  cycles, with its launches and trees for the CV and the finals), both responses
   keeping "b", every r^2 within 0.01 of the JAX package's value for key 0
   (``tools/record_jax_b_r2.py``);
 * ``kernel_k3``: the forest predictor K3 against its plain version on one
@@ -85,6 +88,10 @@ R2_TOL_B = 0.01
 # K2 against its plain version: trees that part must part at a near-tie
 TIE_GAP = 1e-5
 K2_TOL = 1e-5   # of max |y - f|, where the trees agree
+K2_CYCLE = 50   # trees per K2 launch on the BRT path: gbm.step's step_size
+# the deviance sums where a cycle's trees agree: float32 sums of 813 rows in
+# another order (n eps ~ 5e-5), and f within K2_TOL
+K2_DEV_RTOL = 1e-4
 K3_TOL = 1e-5   # of sum |w v| per response
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -286,32 +293,49 @@ def _ptxas_summary(name: str) -> list:
             if "registers" in ln or "spill" in ln]
 
 
-def _k2_work(xb, trees, n_splits, nb):
-    """Operations K2's function needs for these grown trees: per chain, the
-    root's histogram (4 hi/lo adds per row and feature) and 12-operation gains
-    over the p * nb candidates; per split, the parent's rows' histograms
-    (4 adds per row and feature), two children's gains and one routing test
-    per row; 2 operations per row for the update."""
+def _k2_work(xb, trees, nb, update_ops):
+    """Operations K2's function needs for these grown trees, (T, C, .)
+    arrays (feat, thr, internal, left): per tree of a chain, the root's
+    histogram (4 hi/lo adds per row and feature) and 12-operation gains over
+    the p * nb candidates; per split, the parent's rows' histograms (4 adds
+    per row and feature), two children's gains and one routing test per row;
+    ``update_ops`` per row for the update after the tree (and its deviance
+    sums)."""
     import numpy as np
 
     from machisplin_tpu_torch.ops.tree_grow import split_sequence
 
     n, p = xb.shape
-    feat, thr, internal, left = (t.cpu().numpy() for t in trees[:4])
+    feat, thr, internal, left = trees
     ops = 0
-    for c in range(feat.shape[0]):
-        cur = np.zeros(n, np.int64)
-        ops += 4 * n * p + 12 * p * nb + 2 * n
-        for k, (q, f, b) in enumerate(split_sequence(feat[c], thr[c], internal[c], left[c])):
-            rows = cur == q
-            m = int(rows.sum())
-            ops += 4 * m * p + 2 * 12 * p * nb + m
-            cur[rows] = np.where(xb[rows, f] <= b, 2 * k + 1, 2 * k + 2)
+    for t in range(feat.shape[0]):
+        for c in range(feat.shape[1]):
+            cur = np.zeros(n, np.int64)
+            ops += 4 * n * p + 12 * p * nb + update_ops * n
+            for k, (q, f, b) in enumerate(split_sequence(feat[t, c], thr[t, c], internal[t, c], left[t, c])):
+                rows = cur == q
+                m = int(rows.sum())
+                ops += 4 * m * p + 2 * 12 * p * nb + m
+                cur[rows] = np.where(xb[rows, f] <= b, 2 * k + 1, 2 * k + 2)
     return ops
 
 
-def phase_kernel_k2():
-    """K2 against its plain version at the CV and the finals' shapes."""
+def _k2_cycle_bytes(n, p, nb, c, n_trees, n_splits, *, emit, scaled, deviance):
+    """Bytes a cycle of ``n_trees`` trees must move, each input read once and
+    each output written once: the bins, sorted rows and bin offsets, y, f in
+    and out (and the deviance weights) once a cycle; each tree's bags (and
+    scale, tree arrays and deviance sums)."""
+    once = 3 * p * n + 4 * p * (nb + 1) + 3 * 4 * c * n + (2 * 4 * c * n if deviance else 0)
+    per_tree = (4 * c * n + (4 * c if scaled else 0) + (4 * c * (6 * (2 * n_splits + 1) + p) if emit else 0)
+                + (2 * 4 * c if deviance else 0))
+    return once + n_trees * per_tree
+
+
+def k2_inputs() -> dict:
+    """K2's inputs at the BRT path's shapes, on the card: the stations' bins
+    and their tables, and per shape y, w, n_splits, lr and emit (the CV
+    curve's 200 chains at tree complexity 25; the finals' 20 chains at tree
+    complexity 5, emitting trees).  Seeded."""
     import numpy as np
     import torch
 
@@ -319,15 +343,11 @@ def phase_kernel_k2():
     from machisplin_tpu_torch.models import gbm_step, trees as ttrees
     from machisplin_tpu_torch.ops import tree_grow
 
-    t0 = time.perf_counter()
     x_np, ys = _stations()
     n = x_np.shape[0]
     x = torch.as_tensor(x_np, device="cuda")
-    nb, min_leaf = 64, 10.0
-    edges = ttrees.make_bins(x, nb)
-    xb = ttrees.bin_data(x, edges)
-    xbt = xb.T.to(torch.uint8).contiguous()
-    xb_np = xb.cpu().numpy()
+    nb = 64
+    xb = ttrees.bin_data(x, ttrees.make_bins(x, nb))
     gen = torch.Generator().manual_seed(1)
     ycols = torch.as_tensor(ys, dtype=torch.float32, device="cuda")           # (n, 2)
 
@@ -344,17 +364,79 @@ def phase_kernel_k2():
                             device="cuda").long()
     fin_w = (sel_f[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float().reshape(20, n)
     fin_y = ycols.T.repeat_interleave(10, dim=0)
-
-    shapes = {
+    return {"xb": xb, "tables": tree_grow.prepare_bins(xb, nb), "nb": nb, "min_leaf": 10.0, "shapes": {
         "cv": dict(y=cv_y.contiguous(), w=cv_w.contiguous(), n_splits=25, lr=0.01, emit=False),
         "finals": dict(y=fin_y.contiguous(), w=fin_w.contiguous(), n_splits=5, lr=0.001, emit=True),
-    }
-    res = {"phase": "kernel_k2", "stations": n, "features": int(xb.shape[1]), "nb": nb,
-           "tie_gap": TIE_GAP, "tol": K2_TOL, "ptxas": _ptxas_summary("tree_grow"), "shapes": {}}
+    }}
+
+
+def k2_cycle_kwargs(sh, nb, min_leaf, n_trees) -> dict:
+    """A cycle's keywords as the BRT path launches it at shape ``sh``: the
+    CV curve's ``f + lr v``, or the finals' lr = 1 with ``scale`` lr,
+    emitting trees and the training and holdout deviance sums."""
+    import torch
+
+    kw = dict(n_splits=sh["n_splits"], nb=nb, min_leaf=min_leaf, lr=sh["lr"])
+    if sh["emit"]:
+        w = sh["w"]
+        kw.update(lr=1.0, emit_tree=True, scale=torch.full((n_trees, w.shape[0]), sh["lr"], device=w.device),
+                  deviance_w=torch.stack([w, (w <= 0).float()]).contiguous())
+    return kw
+
+
+def _k2_cycle_vs_single(tables, y, f, bags, kw) -> dict:
+    """One launch of a T-tree cycle against T one-tree launches of the same
+    kernel on the same inputs: every output bit-identical."""
+    import torch
+
+    from machisplin_tpu_torch.ops import tree_grow
+
+    before = dict(tree_grow.LAUNCHES)
+    cyc = tree_grow.gbm_tree_cycle_cuda(tables, y, f, bags, **kw)
+    torch.cuda.synchronize()
+    launches = {k: tree_grow.LAUNCHES[k] - before[k] for k in before}
+    fs, trees, devs = f, [], []
+    for t in range(bags.shape[0]):
+        one = dict(kw, scale=None if kw.get("scale") is None else kw["scale"][t : t + 1])
+        out = tree_grow.gbm_tree_cycle_cuda(tables, y, fs, bags[t : t + 1], **one)
+        fs = out.f
+        trees.append(out.trees)
+        devs.append(out.deviance)
+    torch.cuda.synchronize()
+    same = [torch.equal(cyc.f, fs)]
+    if cyc.trees is not None:
+        same += [torch.equal(cyc.trees[k], torch.cat([tr[k] for tr in trees])) for k in range(7)]
+    if cyc.deviance is not None:
+        same.append(torch.equal(cyc.deviance, torch.cat(devs)))
+    return {"trees": int(bags.shape[0]), "identical": all(same), "outputs_compared": len(same),
+            "cycle_launches": launches}
+
+
+def phase_kernel_k2():
+    """K2 against its plain version at the CV and the finals' shapes, one
+    tree at a time and a 50-tree cycle as the path launches it; the cycle
+    against 50 one-tree launches; times per tree."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.models import trees as ttrees
+    from machisplin_tpu_torch.ops import tree_grow
+
+    t0 = time.perf_counter()
+    inp = k2_inputs()
+    xb, tables, nb, min_leaf = inp["xb"], inp["tables"], inp["nb"], inp["min_leaf"]
+    n, p = (int(d) for d in xb.shape)
+    cum1h = ttrees.flat_bin_cum_onehot(xb, nb)
+    plain_tables = tables._replace(cum1h=cum1h)
+    segments = (tables.offsets[:, 1:] - tables.offsets[:, :-1]).cpu().numpy()
+    xb_np = xb.cpu().numpy()
+    res = {"phase": "kernel_k2", "stations": n, "features": p, "nb": nb,
+           "tie_gap": TIE_GAP, "tol": K2_TOL, "dev_rtol": K2_DEV_RTOL, "ptxas": _ptxas_summary("tree_grow"),
+           "bin_rows_longest": int(segments.max()), "bin_rows_mean": float(segments.mean()), "shapes": {}}
     failures = []
     g_dev = torch.Generator(device="cuda").manual_seed(2)
-    for name, sh in shapes.items():
-        y, w, n_splits, lr = sh["y"], sh["w"], sh["n_splits"], sh["lr"]
+    for name, sh in inp["shapes"].items():
+        y, w, n_splits, lr, emit_tree = sh["y"], sh["w"], sh["n_splits"], sh["lr"], sh["emit"]
         c = y.shape[0]
         kw = dict(n_splits=n_splits, nb=nb, min_leaf=min_leaf)
         f = ((w * y).sum(1) / w.sum(1).clamp_min(1.0))[:, None].expand(c, n).contiguous()
@@ -362,10 +444,10 @@ def phase_kernel_k2():
         for step in range(301):
             bag = (torch.rand((c, n), generator=g_dev, device="cuda") < 0.5).float() * w
             if step in (0, 300):
-                got = tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=True, **kw)
-                want = tree_grow.gbm_tree_update_plain(xb.T, None, y, f, bag, lr=lr, emit_tree=True, **kw)
+                got = tree_grow.gbm_tree_cycle(tables, y, f, bag[None], lr=lr, emit_tree=True, **kw)
+                want = tree_grow.gbm_tree_update_plain(xb.T, cum1h, y, f, bag, lr=lr, emit_tree=True, **kw)
                 torch.cuda.synchronize()
-                got_np = [a.cpu().numpy() for a in got]
+                got_np = [got.f.cpu().numpy()] + [a[0].cpu().numpy() for a in got.trees]
                 want_np = [a.cpu().numpy() for a in want]
                 r = (y - f).cpu().numpy()
                 bag_np = bag.cpu().numpy()
@@ -382,27 +464,54 @@ def phase_kernel_k2():
                 scale = float(np.abs(r).max())
                 checks.append({"step": step, "chains": c, "identical_trees": same,
                                "differing_gaps": sorted(gaps), "max_abs_err": err, "scale": scale})
-                if any(g > TIE_GAP for g in gaps):
+                if not all(g <= TIE_GAP for g in gaps):
                     failures.append(f"K2 {name} step {step}: trees part away from a near-tie {max(gaps)}")
                 if not err <= K2_TOL * scale:
                     failures.append(f"K2 {name} step {step}: f differs by {err} > {K2_TOL} * {scale}")
-                timed_trees = got[1:6]
-            f = tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=False, **kw)
-        bag = (torch.rand((c, n), generator=g_dev, device="cuda") < 0.5).float() * w
-        emit_tree = sh["emit"]
-        ms = cuda_ms(lambda: tree_grow.gbm_tree_update_cuda(xbt, y, f, bag, lr=lr, emit_tree=emit_tree, **kw),
-                     reps=20)
-        plain_ms = cuda_ms(lambda: tree_grow.gbm_tree_update_plain(xb.T, None, y, f, bag, lr=lr,
-                                                                 emit_tree=emit_tree, **kw), reps=3)
-        ops = _k2_work(xb_np, timed_trees, n_splits, nb)
-        n_total = 2 * n_splits + 1
-        nbytes = xb.numel() + 4 * 4 * c * n + (4 * c * (6 * n_total + xb.shape[1]) if emit_tree else 0)
+            f = tree_grow.gbm_tree_cycle(tables, y, f, bag[None], lr=lr, **kw).f
+        # a cycle as the main path launches it: the CV's update, or the
+        # finals' scaled update with trees and deviance sums
+        bags = (torch.rand((K2_CYCLE, c, n), generator=g_dev, device="cuda") < 0.5).float() * w
+        ckw = k2_cycle_kwargs(sh, nb, min_leaf, K2_CYCLE)
+        cycle = _k2_cycle_vs_single(tables, y, f, bags, ckw)
+        if not cycle["identical"]:
+            failures.append(f"K2 {name}: a {K2_CYCLE}-tree cycle differs from {K2_CYCLE} one-tree launches")
+        if cycle["cycle_launches"] != {"tree_grow": 1, "tree_grow_trees": K2_CYCLE}:
+            failures.append(f"K2 {name}: the cycle counted {cycle['cycle_launches']}")
+        # the same cycle with its trees, against the plain version grown from the same inputs
+        grown = tree_grow.gbm_tree_cycle_cuda(tables, y, f, bags, **dict(ckw, emit_tree=True))
+        agree = tree_grow.cycle_agreement(xb, y, f, bags, grown, cum1h=cum1h,
+                                          **{k: v for k, v in ckw.items() if k != "emit_tree"})
+        bad = [g for g in agree["gaps"] if not g[2] <= TIE_GAP]
+        if bad:
+            failures.append(f"K2 {name} cycle: trees part from the plain version away from a near-tie: {bad[:5]}")
+        if not agree["identical_chains"] > 0:
+            failures.append(f"K2 {name} cycle: no chain's {K2_CYCLE} trees all agree with the plain version")
+        if not agree["max_abs_err"] <= K2_TOL * agree["resid_scale"]:
+            failures.append(f"K2 {name} cycle: f differs by {agree['max_abs_err']} > {K2_TOL} * "
+                            f"{agree['resid_scale']}")
+        dev_err = agree["max_rel_err_deviance"]
+        if "deviance_w" in ckw and not dev_err <= K2_DEV_RTOL:
+            failures.append(f"K2 {name} cycle: deviance sums differ by {dev_err} > {K2_DEV_RTOL} (relative)")
+        splits = grown.trees[2].sum(-1).amax(1).mean().item()     # per tree, the chain that split most
+        cycle_ms = cuda_ms(lambda: tree_grow.gbm_tree_cycle_cuda(tables, y, f, bags, **ckw), reps=10)
+        single_ms = cuda_ms(lambda: tree_grow.gbm_tree_cycle(tables, y, f, bag[None], lr=lr, emit_tree=emit_tree,
+                                                             **kw), reps=20)
+        plain_ms = cuda_ms(lambda: tree_grow.gbm_tree_cycle_plain(plain_tables, y, f, bags, **ckw), reps=1)
+        update_ops = 2 + (3 + 6 if emit_tree else 0)   # f + lr v; the finals' scaled update and deviance sums
+        ops = _k2_work(xb_np, [a.cpu().numpy() for a in grown.trees[:4]], nb, update_ops) / K2_CYCLE
+        nbytes = _k2_cycle_bytes(n, p, nb, c, K2_CYCLE, n_splits, emit=emit_tree, scaled="scale" in ckw,
+                                 deviance="deviance_w" in ckw) / K2_CYCLE
         t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms = cycle_ms / K2_CYCLE
         res["shapes"][name] = {
-            "chains": c, "n_splits": n_splits, "emit_tree": emit_tree, "checks": checks,
-            "smem_bytes": tree_grow.smem_bytes(n, int(xb.shape[1]), nb, n_splits),
-            "max_abs_err": max(ch["max_abs_err"] for ch in checks),
-            "ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
+            "chains": c, "n_splits": n_splits, "emit_tree": emit_tree, "checks": checks, "cycle_check": cycle,
+            "plain_cycle_check": dict(agree, gaps=sorted(g[2] for g in agree["gaps"])),
+            "smem_bytes": tree_grow.smem_bytes(n, p, nb, n_splits),
+            "max_abs_err": max([ch["max_abs_err"] for ch in checks] + [agree["max_abs_err"]]),
+            "ms": ms, "cycle_ms": cycle_ms, "single_launch_ms": single_ms,
+            "splits_per_tree": splits, "ms_per_dependent_pass": ms / (splits + 1),
+            "plain_ms": plain_ms / K2_CYCLE, "ops": ops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
     res["seconds"] = time.perf_counter() - t0
@@ -436,7 +545,7 @@ def phase_mltps_b(captured: dict):
     fit_multi, prepare = gbm_step.fit_multi, mltps_mod.prepare_forest
 
     def fit_multi_seen(*a, **kw):
-        captured["cv_steps"] = tree_grow.LAUNCHES["tree_grow"]
+        captured["cv_k2"] = dict(tree_grow.LAUNCHES)
         out = fit_multi(*a, **kw)
         captured["finals"] = [(r.best_trees, r.restarts, r.learning_rate, r.trees_fitted) for r in out]
         return out
@@ -476,11 +585,12 @@ def phase_mltps_b(captured: dict):
             if not abs(got[key] - ref[key]) <= R2_TOL_B:
                 failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {ref[key]}")
     ft = captured.get("forest")
+    cv_k2 = captured.get("cv_k2", {})
     emit({
         "phase": "mltps_b", "seconds": time.perf_counter() - t0, "setup_s": t_setup, "mltps_wall_s": wall,
         "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": timer.as_dict(),
-        "launches": launches, "k2_steps_cv": captured.get("cv_steps"),
-        "k2_steps_finals": launches["tree_grow"] - (captured.get("cv_steps") or 0),
+        "launches": launches, "k2_cv": cv_k2,
+        "k2_finals": {k: launches[k] - cv_k2.get(k, 0) for k in ("tree_grow", "tree_grow_trees")},
         "finals_best_trees_restarts_lr_fitted": captured.get("finals"),
         "forest_slots": None if ft is None else int(ft.lo_w.shape[0]),
         "layers": layers, "jax_reference": JAX_REFERENCE_B, "r2_tol": R2_TOL_B, "jax_key_spread": R2_SPREAD_B,
@@ -490,6 +600,8 @@ def phase_mltps_b(captured: dict):
         failures.append(f"K1 launched {launches['tps_grid']} times on the BRT path, expected 6")
     if launches["tree_grow"] <= 0 or launches["forest_predict"] <= 0:
         failures.append(f"a tree kernel did not run on the BRT path: {launches}")
+    if launches["tree_grow_trees"] != K2_CYCLE * launches["tree_grow"]:
+        failures.append(f"K2 did not grow {K2_CYCLE}-tree cycles on the BRT path: {launches}")
     if failures:
         raise RuntimeError("; ".join(failures))
     return launches
@@ -576,7 +688,9 @@ def main() -> int:
     launches = phase_mltps_b(captured)
     k3 = phase_kernel_k3(captured)
     k2cv = k2["shapes"]["cv"]
-    # no single PyTorch call grows a tree or evaluates a forest: library_ms null
+    # no single PyTorch call grows a tree or evaluates a forest: library_ms null.
+    # tree_grow's times and bound are per tree at the CV shape (a launch on the
+    # path grows a cycle of K2_CYCLE trees)
     emit({"kernels": [{
         "name": "tps_grid", "route": "cuda", "source": "machisplin_tpu_torch/csrc/tps_grid.cu",
         "replaces": "machisplin_tpu/ops/pallas_tps.py:56", "launches": launches["tps_grid"],

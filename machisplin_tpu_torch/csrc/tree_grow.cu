@@ -1,8 +1,11 @@
-// Kernel K2: one best-first boosting tree per chain, plus the boosting update.
+// Kernel K2: T consecutive best-first boosting trees per chain in one launch
+// (one boosting cycle), each followed by its boosting update.
 //
 // Replaces machisplin_tpu/ops/pallas_grow.py::_tree_kernel (launched from
-// gbm_tree_update).  For every chain c (one row of y, f, w), over bins that
-// every chain shares (xbt, p x n bytes, bin < nb):
+// gbm_tree_update, once per tree; the JAX package runs a cycle of trees as one
+// device program, lax.scan in models/gbm_step.py::_cycle_program).  For every
+// chain c (one row of y and f) and tree t < T, over bins that every chain
+// shares (xbt, p x n bytes, bin < nb), with w = bags[t, c]:
 //   r = y - f, wy = w * r;
 //   root: cumulative split stats of all rows, best (feature, bin) by gbm's
 //   squared-error gain
@@ -12,31 +15,41 @@
 //   n_splits best-first steps: split the node slot of largest gain (first
 //   maximum) if its gain exceeds 1e-9, children in slots 2k+1 (bin <= thr)
 //   and 2k+2, with exact node totals and the children's best splits;
-//   value[s] = swy[s] / max(sw[s], 1e-12);  f_out = f + lr * value[node].
-// With emit (feat != NULL) it also writes the tree: feat, thr (bin index),
+//   value[s] = swy[s] / max(sw[s], 1e-12);  f_new = f + lr * value[node];
+//   f = f_new, or with scale (T, C): f = f + scale[t, c] * (f_new - f).
+// With emit (feat != NULL) it also writes tree t: feat, thr (bin index),
 // internal, left, right, value per node slot and the summed gain per feature.
+// With dev (dev_out != NULL) it writes, after tree t's update, the sums
+// over rows of dev_w[k, c] * (y - f)^2 for k = 0, 1.
 //
 // Split statistics keep the TPU kernel's accuracy class: each row's w and
 // w * r are split into bfloat16 hi and lo halves; the halves are summed
 // apart in float32 and then added.  Totals (tw, twy, node sums, hence leaf
 // values) are exact float32 row sums.  There are no float atomics: every sum
 // runs in a fixed order, so two launches on the same inputs give the same
-// trees.  Round-to-nearest intrinsics keep nvcc from contracting a*b + c.
+// trees, and a cycle of T trees gives what T launches of one tree give.
+// Round-to-nearest intrinsics keep nvcc from contracting a*b + c.
 //
 // What bounds it: neither bytes nor operations in the roofline sense.  A
-// chain reads (p + 12) n bytes and writes 4 n, and a tree costs some
-// (n_splits + 1) p nb n compare-and-adds, but the n_splits steps depend on
-// each other, so a launch is a chain of short block-wide passes separated
-// by barriers: latency.
+// tree needs some (n_splits + 1) * 4 p n adds, but the n_splits steps depend
+// on each other: a tree is a chain of short block-wide passes separated by
+// barriers, so latency.
 //
-// Design: one thread block per chain; everything a chain touches lives in
-// shared memory (the rows' bins, their hi/lo parts, exact w and w r, the
-// node id of every row, the node and tree tables).  One thread per
-// (feature, bin) column walks the rows in order and accumulates the
-// cumulative left and parent sums of the rows in the two new children; all
-// threads of a warp read the same row at once (a broadcast), and the branch
-// on a row's node is uniform across the block.  Argmaxes are warp-shuffle
-// reductions that keep the lowest index on a tie.
+// Design: one thread block per chain, for the whole cycle; everything a chain
+// touches lives in shared memory (the rows' bins; the rows of each feature
+// sorted by bin with the bins' offsets into them; the rows' hi/lo parts as
+// four packed bfloat16, exact w and w r, f and node id; the node and tree
+// tables).  One thread per (feature, bin) column walks only its own bin's
+// segment of the sorted rows (about n / nb rows) and sums the rows of the
+// two new children (branch-free: any other row adds 0), then a warp shuffle
+// scan and one carry per earlier warp of the feature turn the per-bin sums
+// into cumulative ones: a step costs about n p row visits, not n p nb.
+// Columns are laid out with each feature padded to whole warps, so the scan
+// never crosses a feature.  Argmaxes are two
+// warp reductions (redux.sync max of an order-preserving key of the gain,
+// then min of the index among the lanes that hold it), so a tie keeps the
+// lowest index; the small ones (node pick, the per-warp winners) are
+// repeated by every warp, so a split step has four barriers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -48,8 +61,24 @@ namespace {
 constexpr float EPS = 1e-12f;
 constexpr int MAX_SPLITS = 127;  // node ids fit in one byte
 
+// Sections of a tree's time, for tools/k2_probe.py.  Built with -DK2_PROBE,
+// thread 0 of block 0 adds the clock64 cycles since its previous mark to the
+// section that a mark closes; the default build has no marks.
+enum Section { INIT, NODE_PICK, ROUTE_TOTALS, SCAN_BARRIER, ARGMAX_BARRIER, NODE_WRITE, TO_LEAF, LEAF_UPDATE,
+               WALK, GAINS, N_SECTIONS };
+#ifdef K2_PROBE
+__device__ unsigned long long g_section_cycles[N_SECTIONS];
+__device__ long long g_mark;
+#define MARK_START() do { if (blockIdx.x == 0 && threadIdx.x == 0) g_mark = clock64(); } while (0)
+#define MARK(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { const long long now_ = clock64(); \
+  g_section_cycles[k] += (unsigned long long)(now_ - g_mark); g_mark = now_; } } while (0)
+#else
+#define MARK_START() do { } while (0)
+#define MARK(k) do { } while (0)
+#endif
+
 struct Layout {
-  size_t hl, w, wy, gl, gr, ng, nf, nbin, nsw, nswy, tf, tt, ti, tl, tr, vg, red, redi, bins, cur, total;
+  size_t hl, w, wy, f, scan, ng, nf, nbin, nsw, nswy, tf, tt, ti, tl, tr, vg, tot, best, off, order, bins, cur, total;
 };
 
 __host__ __device__ inline size_t take(size_t& off, size_t bytes, size_t align) {
@@ -59,15 +88,18 @@ __host__ __device__ inline size_t take(size_t& off, size_t bytes, size_t align) 
   return at;
 }
 
+// columns: each feature's nb bins padded to whole warps
+__host__ __device__ inline int padded_bins(int nb) { return (nb + 31) / 32 * 32; }
+
 __host__ __device__ inline Layout make_layout(int n, int p, int nb, int n_total) {
   Layout s;
   size_t off = 0;
-  const size_t L = (size_t)p * nb;
-  s.hl = take(off, 16 * (size_t)n, 16);      // float4 (w_hi, w_lo, wy_hi, wy_lo)
+  const size_t pc = (size_t)p * padded_bins(nb);
+  s.hl = take(off, 8 * (size_t)n, 16);       // bfloat16 pairs (w_hi | w_lo, wy_hi | wy_lo)
   s.w = take(off, 4 * (size_t)n, 4);
   s.wy = take(off, 4 * (size_t)n, 4);
-  s.gl = take(off, 4 * L, 4);
-  s.gr = take(off, 4 * L, 4);
+  s.f = take(off, 4 * (size_t)n, 4);
+  s.scan = take(off, 4 * 8 * pc, 4);         // 8 warp-scanned sums per column
   s.ng = take(off, 4 * (size_t)n_total, 4);  // node gain (then node value)
   s.nf = take(off, 4 * (size_t)n_total, 4);
   s.nbin = take(off, 4 * (size_t)n_total, 4);
@@ -79,8 +111,10 @@ __host__ __device__ inline Layout make_layout(int n, int p, int nb, int n_total)
   s.tl = take(off, 4 * (size_t)n_total, 4);
   s.tr = take(off, 4 * (size_t)n_total, 4);
   s.vg = take(off, 4 * (size_t)p, 4);
-  s.red = take(off, 4 * 4 * 32, 4);
-  s.redi = take(off, 4 * 32, 4);
+  s.tot = take(off, 4 * 4 * 32, 4);          // per-warp partial sums
+  s.best = take(off, 16 * 32, 16);           // per-warp winners (gl, il, gr, ir)
+  s.off = take(off, 4 * (size_t)p * (nb + 1), 4);
+  s.order = take(off, 2 * (size_t)p * n, 2);
   s.bins = take(off, (size_t)p * n, 1);
   s.cur = take(off, (size_t)n, 1);
   s.total = take(off, 0, 16);
@@ -91,61 +125,44 @@ __device__ __forceinline__ bool better(float g, int i, float bg, int bi) {
   return g > bg || (g == bg && i < bi);
 }
 
+// A key whose unsigned order is the float order of gains (NaN lowest, -0
+// as +0, as the comparisons of `better` treat them).
+__device__ __forceinline__ unsigned gain_key(float g) {
+  const unsigned u = __float_as_uint(__fadd_rn(g, 0.0f));
+  if (g != g) return 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// First maximum over the warp; every lane gets it.
 __device__ __forceinline__ void warp_argmax(float& g, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float og = __shfl_down_sync(0xffffffffu, g, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(og, oi, g, i)) { g = og; i = oi; }
-  }
+  const unsigned k = gain_key(g);
+  const unsigned kmax = __reduce_max_sync(0xffffffffu, k);
+  i = __reduce_min_sync(0xffffffffu, k == kmax ? i : INT_MAX);
+  g = kmax == 0u ? __uint_as_float(0x7fc00000u)
+                 : __uint_as_float((kmax & 0x80000000u) ? (kmax & 0x7fffffffu) : ~kmax);
 }
 
-// First maximum of vals[0..len) over the block; every thread gets it.
-__device__ void block_argmax(const float* vals, int len, float* s_red, int* s_redi, float& out_g, int& out_i) {
-  float g = -CUDART_INF_F;
-  int i = INT_MAX;
-  for (int j = threadIdx.x; j < len; j += blockDim.x) {
-    if (better(vals[j], j, g, i)) { g = vals[j]; i = j; }
-  }
-  warp_argmax(g, i);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = (blockDim.x + 31) >> 5;
-  if (lane == 0) { s_red[warp] = g; s_redi[warp] = i; }
-  __syncthreads();
-  if (warp == 0) {
-    g = lane < nwarps ? s_red[lane] : -CUDART_INF_F;
-    i = lane < nwarps ? s_redi[lane] : INT_MAX;
-    warp_argmax(g, i);
-    if (lane == 0) { s_red[0] = g; s_redi[0] = i; }
-  }
-  __syncthreads();
-  out_g = s_red[0];
-  out_i = s_redi[0];
-  __syncthreads();
-}
-
-// Block sums of four per-thread partials, in a fixed order.
-__device__ void block_sum4(float a[4], float* s_red) {
+// Block sums of K per-thread partials in a fixed order (a shuffle tree per
+// warp, then one over the warps' sums, which every warp repeats); every
+// thread gets them.  One barrier; s_tot must not be rewritten before a later
+// barrier.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&a)[K], float* s_tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = (blockDim.x + 31) >> 5;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < K; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) a[k] = __fadd_rn(a[k], __shfl_down_sync(0xffffffffu, a[k], off));
-    if (lane == 0) s_red[k * 32 + warp] = a[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v = lane < nwarps ? s_red[k * 32 + lane] : 0.0f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (lane == 0) s_red[k * 32] = v;
-    }
+    if (lane == 0) s_tot[k * 32 + warp] = a[k];
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < 4; ++k) a[k] = s_red[k * 32];
-  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    float v = lane < nwarps ? s_tot[k * 32 + lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+    a[k] = __shfl_sync(0xffffffffu, v, 0);
+  }
 }
 
 __device__ __forceinline__ float split_gain(float clw, float clwy, float tw, float twy, bool last_bin, float min_leaf) {
@@ -158,172 +175,263 @@ __device__ __forceinline__ float split_gain(float clw, float clwy, float tw, flo
   return __fsub_rn(__fadd_rn(a, b), c);
 }
 
-__global__ void tree_grow_kernel(const uint8_t* __restrict__ xbt, const float* __restrict__ y,
-                                 const float* __restrict__ f, const float* __restrict__ w,
+struct Smem {
+  uint2* hl; float* w; float* wy; float* f; float* scan;
+  float* ng; int* nf; int* nb; float* nsw; float* nswy;
+  int* tf; int* tt; float* ti; int* tl; int* tr; float* vg;
+  float* tot; float4* best; int* off; int16_t* order; uint8_t* bins; uint8_t* cur;
+};
+
+// The best split of the left child (rows with node lid) and of the right
+// child (node rid) from the rows' bins; with lid == rid, of that node alone
+// (gr is then meaningless).  Every thread gets (gl, il, gr, ir); il / ir are
+// flattened (feature, bin) indices.  Two barriers; the caller puts a third
+// before anything reads what this pass reads is rewritten.
+__device__ void best_splits(const Smem& s, int n, int p, int nb, int lid, int rid, float tl_w, float tl_wy,
+                            float tr_w, float tr_wy, float min_leaf, float& gl, int& il, float& gr, int& ir) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nt = blockDim.x, nwarps = (nt + 31) >> 5;
+  const int nbw = padded_bins(nb);
+  const int pc = p * nbw;
+  // per-bin sums of the bin's segment of sorted rows, then a warp scan
+  for (int col = threadIdx.x; col < pc; col += nt) {
+    const int fc = col / nbw, bc = col - fc * nbw;
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // left hw lw hy ly, parent hw lw hy ly
+    if (bc < nb) {
+      const int* so = s.off + fc * (nb + 1);
+      const int16_t* rows = s.order + (size_t)fc * n;
+      const int end = so[bc + 1];
+#pragma unroll 4
+      for (int j = so[bc]; j < end; ++j) {
+        const int i = rows[j];
+        const int cu = s.cur[i];
+        const uint2 hb = s.hl[i];
+        const float4 h = make_float4(__uint_as_float(hb.x << 16), __uint_as_float(hb.x & 0xffff0000u),
+                                     __uint_as_float(hb.y << 16), __uint_as_float(hb.y & 0xffff0000u));
+        const bool in_p = cu == lid || cu == rid, in_l = cu == lid;
+        v[4] = __fadd_rn(v[4], in_p ? h.x : 0.0f); v[5] = __fadd_rn(v[5], in_p ? h.y : 0.0f);
+        v[6] = __fadd_rn(v[6], in_p ? h.z : 0.0f); v[7] = __fadd_rn(v[7], in_p ? h.w : 0.0f);
+        v[0] = __fadd_rn(v[0], in_l ? h.x : 0.0f); v[1] = __fadd_rn(v[1], in_l ? h.y : 0.0f);
+        v[2] = __fadd_rn(v[2], in_l ? h.z : 0.0f); v[3] = __fadd_rn(v[3], in_l ? h.w : 0.0f);
+      }
+    }
+    MARK(WALK);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float o = __shfl_up_sync(0xffffffffu, v[k], d);
+        if (lane >= d) v[k] = __fadd_rn(v[k], o);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s.scan[k * pc + col] = v[k];
+  }
+  __syncthreads();
+  MARK(SCAN_BARRIER);
+  // carries from the feature's earlier warps, gains, per-thread winners
+  float bgl = -CUDART_INF_F, bgr = -CUDART_INF_F;
+  int bil = INT_MAX, bir = INT_MAX;
+  for (int col = threadIdx.x; col < pc; col += nt) {
+    const int fc = col / nbw, bc = col - fc * nbw;
+    // lane k < 8 sums component k's totals of the feature's earlier warps
+    float carry = 0.0f;
+    if (lane < 8) {
+      for (int b = 31; b < (bc & ~31); b += 32) carry = __fadd_rn(carry, s.scan[lane * pc + fc * nbw + b]);
+    }
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(__shfl_sync(0xffffffffu, carry, k), s.scan[k * pc + col]);
+    if (bc < nb) {
+      const int idx = fc * nb + bc;
+      const bool last = bc >= nb - 1;
+      const float clw = __fadd_rn(v[0], v[1]), clwy = __fadd_rn(v[2], v[3]);
+      const float cpw = __fadd_rn(v[4], v[5]), cpwy = __fadd_rn(v[6], v[7]);
+      const float g0 = split_gain(clw, clwy, tl_w, tl_wy, last, min_leaf);
+      const float g1 = split_gain(__fsub_rn(cpw, clw), __fsub_rn(cpwy, clwy), tr_w, tr_wy, last, min_leaf);
+      if (better(g0, idx, bgl, bil)) { bgl = g0; bil = idx; }
+      if (better(g1, idx, bgr, bir)) { bgr = g1; bir = idx; }
+    }
+  }
+  MARK(GAINS);
+  warp_argmax(bgl, bil);
+  warp_argmax(bgr, bir);
+  if (lane == 0) s.best[warp] = make_float4(bgl, __int_as_float(bil), bgr, __int_as_float(bir));
+  __syncthreads();
+  const float4 b = lane < nwarps ? s.best[lane]
+                                 : make_float4(-CUDART_INF_F, __int_as_float(INT_MAX), -CUDART_INF_F, __int_as_float(INT_MAX));
+  gl = b.x; il = __float_as_int(b.y); gr = b.z; ir = __float_as_int(b.w);
+  warp_argmax(gl, il);
+  warp_argmax(gr, ir);
+  MARK(ARGMAX_BARRIER);
+}
+
+__global__ void tree_grow_kernel(const uint8_t* __restrict__ xbt, const int16_t* __restrict__ order,
+                                 const int* __restrict__ offsets, const float* __restrict__ y,
+                                 const float* __restrict__ f_in, const float* __restrict__ bags,
+                                 const float* __restrict__ scale, const float* __restrict__ dev_w,
                                  float* __restrict__ f_out, int* __restrict__ o_feat, int* __restrict__ o_thr,
                                  float* __restrict__ o_int, int* __restrict__ o_left, int* __restrict__ o_right,
-                                 float* __restrict__ o_value, float* __restrict__ o_vg,
-                                 int n, int p, int nb, int n_splits, float min_leaf, float lr) {
+                                 float* __restrict__ o_value, float* __restrict__ o_vg, float* __restrict__ dev_out,
+                                 int n_trees, int n_chains, int n, int p, int nb, int n_splits, float min_leaf,
+                                 float lr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_total = 2 * n_splits + 1;
-  const int L = p * nb;
   const Layout lay = make_layout(n, p, nb, n_total);
-  float4* s_hl = reinterpret_cast<float4*>(smem + lay.hl);
-  float* s_w = reinterpret_cast<float*>(smem + lay.w);
-  float* s_wy = reinterpret_cast<float*>(smem + lay.wy);
-  float* s_gl = reinterpret_cast<float*>(smem + lay.gl);
-  float* s_gr = reinterpret_cast<float*>(smem + lay.gr);
-  float* s_ng = reinterpret_cast<float*>(smem + lay.ng);
-  int* s_nf = reinterpret_cast<int*>(smem + lay.nf);
-  int* s_nb = reinterpret_cast<int*>(smem + lay.nbin);
-  float* s_nsw = reinterpret_cast<float*>(smem + lay.nsw);
-  float* s_nswy = reinterpret_cast<float*>(smem + lay.nswy);
-  int* s_tf = reinterpret_cast<int*>(smem + lay.tf);
-  int* s_tt = reinterpret_cast<int*>(smem + lay.tt);
-  float* s_ti = reinterpret_cast<float*>(smem + lay.ti);
-  int* s_tl = reinterpret_cast<int*>(smem + lay.tl);
-  int* s_tr = reinterpret_cast<int*>(smem + lay.tr);
-  float* s_vg = reinterpret_cast<float*>(smem + lay.vg);
-  float* s_red = reinterpret_cast<float*>(smem + lay.red);
-  int* s_redi = reinterpret_cast<int*>(smem + lay.redi);
-  uint8_t* s_bins = smem + lay.bins;
-  uint8_t* s_cur = smem + lay.cur;
+  Smem s;
+  s.hl = reinterpret_cast<uint2*>(smem + lay.hl);
+  s.w = reinterpret_cast<float*>(smem + lay.w);
+  s.wy = reinterpret_cast<float*>(smem + lay.wy);
+  s.f = reinterpret_cast<float*>(smem + lay.f);
+  s.scan = reinterpret_cast<float*>(smem + lay.scan);
+  s.ng = reinterpret_cast<float*>(smem + lay.ng);
+  s.nf = reinterpret_cast<int*>(smem + lay.nf);
+  s.nb = reinterpret_cast<int*>(smem + lay.nbin);
+  s.nsw = reinterpret_cast<float*>(smem + lay.nsw);
+  s.nswy = reinterpret_cast<float*>(smem + lay.nswy);
+  s.tf = reinterpret_cast<int*>(smem + lay.tf);
+  s.tt = reinterpret_cast<int*>(smem + lay.tt);
+  s.ti = reinterpret_cast<float*>(smem + lay.ti);
+  s.tl = reinterpret_cast<int*>(smem + lay.tl);
+  s.tr = reinterpret_cast<int*>(smem + lay.tr);
+  s.vg = reinterpret_cast<float*>(smem + lay.vg);
+  s.tot = reinterpret_cast<float*>(smem + lay.tot);
+  s.best = reinterpret_cast<float4*>(smem + lay.best);
+  s.off = reinterpret_cast<int*>(smem + lay.off);
+  s.order = reinterpret_cast<int16_t*>(smem + lay.order);
+  s.bins = smem + lay.bins;
+  s.cur = smem + lay.cur;
 
-  const size_t row0 = (size_t)blockIdx.x * n;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int c = blockIdx.x;
+  const size_t row0 = (size_t)c * n;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
 
-  for (int i = tid; i < n; i += nt) {
-    const float wi = w[row0 + i];
-    const float wyi = __fmul_rn(wi, __fsub_rn(y[row0 + i], f[row0 + i]));
-    const __nv_bfloat16 wh = __float2bfloat16_rn(wi);
-    const __nv_bfloat16 yh = __float2bfloat16_rn(wyi);
-    const float whf = __bfloat162float(wh), yhf = __bfloat162float(yh);
-    const float wl = __bfloat162float(__float2bfloat16_rn(__fsub_rn(wi, whf)));
-    const float yl = __bfloat162float(__float2bfloat16_rn(__fsub_rn(wyi, yhf)));
-    s_hl[i] = make_float4(whf, wl, yhf, yl);
-    s_w[i] = wi;
-    s_wy[i] = wyi;
-    s_cur[i] = 0;
-  }
-  for (int j = tid; j < p * n; j += nt) s_bins[j] = xbt[j];
-  for (int s = tid; s < n_total; s += nt) {
-    s_ng[s] = -CUDART_INF_F;
-    s_nf[s] = 0; s_nb[s] = 0; s_nsw[s] = 0.0f; s_nswy[s] = 0.0f;
-    s_tf[s] = 0; s_tt[s] = 0; s_ti[s] = 0.0f; s_tl[s] = 0; s_tr[s] = 0;
-  }
-  for (int j = tid; j < p; j += nt) s_vg[j] = 0.0f;
-  __syncthreads();
+  for (int i = tid; i < n; i += nt) s.f[i] = f_in[row0 + i];
+  for (int j = tid; j < p * n; j += nt) { s.bins[j] = xbt[j]; s.order[j] = order[j]; }
+  for (int j = tid; j < p * (nb + 1); j += nt) s.off[j] = offsets[j];
+  MARK_START();
 
-  // ---- root: exact totals, cumulative stats of every row, best split ----
-  float tot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = tid; i < n; i += nt) {
-    tot[0] = __fadd_rn(tot[0], s_w[i]);
-    tot[1] = __fadd_rn(tot[1], s_wy[i]);
-  }
-  block_sum4(tot, s_red);
-  const float tw0 = tot[0], twy0 = tot[1];
-  for (int col = tid; col < L; col += nt) {
-    const int fc = col / nb, bc = col - fc * nb;
-    const uint8_t* bf = s_bins + (size_t)fc * n;
-    float hw = 0.0f, lw = 0.0f, hy = 0.0f, ly = 0.0f;
-#pragma unroll 4
-    for (int i = 0; i < n; ++i) {
-      if (bf[i] <= bc) {
-        const float4 v = s_hl[i];
-        hw = __fadd_rn(hw, v.x); lw = __fadd_rn(lw, v.y);
-        hy = __fadd_rn(hy, v.z); ly = __fadd_rn(ly, v.w);
+  for (int t = 0; t < n_trees; ++t) {
+    const float* w = bags + ((size_t)t * n_chains + c) * n;
+    for (int i = tid; i < n; i += nt) {
+      const float wi = w[i];
+      const float wyi = __fmul_rn(wi, __fsub_rn(y[row0 + i], s.f[i]));
+      const __nv_bfloat16 wh = __float2bfloat16_rn(wi);
+      const __nv_bfloat16 yh = __float2bfloat16_rn(wyi);
+      const __nv_bfloat16 wl = __float2bfloat16_rn(__fsub_rn(wi, __bfloat162float(wh)));
+      const __nv_bfloat16 yl = __float2bfloat16_rn(__fsub_rn(wyi, __bfloat162float(yh)));
+      s.hl[i] = make_uint2((unsigned)__bfloat16_as_ushort(wh) | ((unsigned)__bfloat16_as_ushort(wl) << 16),
+                           (unsigned)__bfloat16_as_ushort(yh) | ((unsigned)__bfloat16_as_ushort(yl) << 16));
+      s.w[i] = wi;
+      s.wy[i] = wyi;
+      s.cur[i] = 0;
+    }
+    for (int k = tid; k < n_total; k += nt) {
+      s.ng[k] = -CUDART_INF_F;
+      s.nf[k] = 0; s.nb[k] = 0; s.nsw[k] = 0.0f; s.nswy[k] = 0.0f;
+      s.tf[k] = 0; s.tt[k] = 0; s.ti[k] = 0.0f; s.tl[k] = 0; s.tr[k] = 0;
+    }
+    for (int j = tid; j < p; j += nt) s.vg[j] = 0.0f;
+    __syncthreads();
+    MARK(INIT);
+
+    // ---- root: exact totals, cumulative stats of every row, best split ----
+    {
+      float tot[2] = {0.0f, 0.0f};
+      for (int i = tid; i < n; i += nt) {
+        tot[0] = __fadd_rn(tot[0], s.w[i]);
+        tot[1] = __fadd_rn(tot[1], s.wy[i]);
       }
+      block_sum<2>(tot, s.tot);
+      MARK(ROUTE_TOTALS);
+      float g, gr; int idx, ir;
+      best_splits(s, n, p, nb, 0, 0, tot[0], tot[1], 0.0f, 0.0f, min_leaf, g, idx, gr, ir);
+      if (tid == 0) {
+        s.ng[0] = g; s.nf[0] = idx / nb; s.nb[0] = idx - (idx / nb) * nb;
+        s.nsw[0] = tot[0]; s.nswy[0] = tot[1];
+      }
+      __syncthreads();
+      MARK(NODE_WRITE);
     }
-    s_gl[col] = split_gain(__fadd_rn(hw, lw), __fadd_rn(hy, ly), tw0, twy0, bc >= nb - 1, min_leaf);
-  }
-  __syncthreads();
-  {
-    float g; int idx;
-    block_argmax(s_gl, L, s_red, s_redi, g, idx);
-    if (tid == 0) {
-      s_ng[0] = g; s_nf[0] = idx / nb; s_nb[0] = idx - (idx / nb) * nb;
-      s_nsw[0] = tw0; s_nswy[0] = twy0;
-    }
-    __syncthreads();
-  }
 
-  // ---- best-first splits ----
-  for (int k = 0; k < n_splits; ++k) {
-    float gq; int q;
-    block_argmax(s_ng, n_total, s_red, s_redi, gq, q);
-    if (!(gq > 1e-9f)) break;  // no node left to split: every later step is a no-op
-    const int bfq = s_nf[q], bbq = s_nb[q];
-    const int lid = 2 * k + 1, rid = 2 * k + 2;
-    const uint8_t* bq = s_bins + (size_t)bfq * n;
-    for (int i = tid; i < n; i += nt) {
-      if (s_cur[i] == q) s_cur[i] = (uint8_t)(bq[i] <= bbq ? lid : rid);
-    }
-    __syncthreads();
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // left w, left wy, parent w, parent wy
-    for (int i = tid; i < n; i += nt) {
-      const int cu = s_cur[i];
-      if (cu == lid) { t[0] = __fadd_rn(t[0], s_w[i]); t[1] = __fadd_rn(t[1], s_wy[i]); }
-      if (cu == lid || cu == rid) { t[2] = __fadd_rn(t[2], s_w[i]); t[3] = __fadd_rn(t[3], s_wy[i]); }
-    }
-    block_sum4(t, s_red);
-    const float tl_w = t[0], tl_wy = t[1], tp_w = t[2], tp_wy = t[3];
-    const float tr_w = __fsub_rn(tp_w, tl_w), tr_wy = __fsub_rn(tp_wy, tl_wy);
-    for (int col = tid; col < L; col += nt) {
-      const int fc = col / nb, bc = col - fc * nb;
-      const uint8_t* bf = s_bins + (size_t)fc * n;
-      float lhw = 0.0f, llw = 0.0f, lhy = 0.0f, lly = 0.0f;
-      float phw = 0.0f, plw = 0.0f, phy = 0.0f, ply = 0.0f;
-#pragma unroll 4
-      for (int i = 0; i < n; ++i) {
-        const int cu = s_cur[i];
-        if (cu == lid || cu == rid) {
-          if (bf[i] <= bc) {
-            const float4 v = s_hl[i];
-            phw = __fadd_rn(phw, v.x); plw = __fadd_rn(plw, v.y);
-            phy = __fadd_rn(phy, v.z); ply = __fadd_rn(ply, v.w);
-            if (cu == lid) {
-              lhw = __fadd_rn(lhw, v.x); llw = __fadd_rn(llw, v.y);
-              lhy = __fadd_rn(lhy, v.z); lly = __fadd_rn(lly, v.w);
-            }
-          }
+    // ---- best-first splits ----
+    for (int k = 0; k < n_splits; ++k) {
+      float gq = -CUDART_INF_F;
+      int q = INT_MAX;
+      for (int j = lane; j < n_total; j += 32) {
+        if (better(s.ng[j], j, gq, q)) { gq = s.ng[j]; q = j; }
+      }
+      warp_argmax(gq, q);
+      MARK(NODE_PICK);
+      if (!(gq > 1e-9f)) break;  // no node left to split: every later step is a no-op
+      const int bfq = s.nf[q], bbq = s.nb[q];
+      const int lid = 2 * k + 1, rid = 2 * k + 2;
+      const uint8_t* bq = s.bins + (size_t)bfq * n;
+      float t4[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // left w, left wy, parent w, parent wy
+      for (int i = tid; i < n; i += nt) {
+        if (s.cur[i] == q) {
+          const bool left = bq[i] <= bbq;
+          s.cur[i] = (uint8_t)(left ? lid : rid);
+          if (left) { t4[0] = __fadd_rn(t4[0], s.w[i]); t4[1] = __fadd_rn(t4[1], s.wy[i]); }
+          t4[2] = __fadd_rn(t4[2], s.w[i]); t4[3] = __fadd_rn(t4[3], s.wy[i]);
         }
       }
-      const float clw = __fadd_rn(lhw, llw), clwy = __fadd_rn(lhy, lly);
-      const float cpw = __fadd_rn(phw, plw), cpwy = __fadd_rn(phy, ply);
-      const bool last = bc >= nb - 1;
-      s_gl[col] = split_gain(clw, clwy, tl_w, tl_wy, last, min_leaf);
-      s_gr[col] = split_gain(__fsub_rn(cpw, clw), __fsub_rn(cpwy, clwy), tr_w, tr_wy, last, min_leaf);
+      block_sum<4>(t4, s.tot);
+      MARK(ROUTE_TOTALS);
+      const float tl_w = t4[0], tl_wy = t4[1];
+      const float tr_w = __fsub_rn(t4[2], tl_w), tr_wy = __fsub_rn(t4[3], tl_wy);
+      float gl, gr; int il, ir;
+      best_splits(s, n, p, nb, lid, rid, tl_w, tl_wy, tr_w, tr_wy, min_leaf, gl, il, gr, ir);
+      if (tid == 0) {
+        s.ng[q] = -CUDART_INF_F;
+        s.ng[lid] = gl; s.nf[lid] = il / nb; s.nb[lid] = il - (il / nb) * nb;
+        s.ng[rid] = gr; s.nf[rid] = ir / nb; s.nb[rid] = ir - (ir / nb) * nb;
+        s.nsw[lid] = tl_w; s.nswy[lid] = tl_wy;
+        s.nsw[rid] = tr_w; s.nswy[rid] = tr_wy;
+        s.tf[q] = bfq; s.tt[q] = bbq; s.ti[q] = 1.0f; s.tl[q] = lid; s.tr[q] = rid;
+        s.vg[bfq] = __fadd_rn(s.vg[bfq], gq);
+      }
+      __syncthreads();
+      MARK(NODE_WRITE);
     }
-    __syncthreads();
-    float gl, gr; int il, ir;
-    block_argmax(s_gl, L, s_red, s_redi, gl, il);
-    block_argmax(s_gr, L, s_red, s_redi, gr, ir);
-    if (tid == 0) {
-      s_ng[q] = -CUDART_INF_F;
-      s_ng[lid] = gl; s_nf[lid] = il / nb; s_nb[lid] = il - (il / nb) * nb;
-      s_ng[rid] = gr; s_nf[rid] = ir / nb; s_nb[rid] = ir - (ir / nb) * nb;
-      s_nsw[lid] = tl_w; s_nswy[lid] = tl_wy;
-      s_nsw[rid] = tr_w; s_nswy[rid] = tr_wy;
-      s_tf[q] = bfq; s_tt[q] = bbq; s_ti[q] = 1.0f; s_tl[q] = lid; s_tr[q] = rid;
-      s_vg[bfq] = __fadd_rn(s_vg[bfq], gq);
-    }
-    __syncthreads();
-  }
 
-  // ---- leaf values and the boosting update ----
-  for (int s = tid; s < n_total; s += nt) s_ng[s] = __fdiv_rn(s_nswy[s], fmaxf(s_nsw[s], EPS));
-  __syncthreads();
-  for (int i = tid; i < n; i += nt) {
-    f_out[row0 + i] = __fadd_rn(f[row0 + i], __fmul_rn(lr, s_ng[s_cur[i]]));
-  }
-  if (o_feat != nullptr) {
-    const size_t t0 = (size_t)blockIdx.x * n_total;
-    for (int s = tid; s < n_total; s += nt) {
-      o_feat[t0 + s] = s_tf[s]; o_thr[t0 + s] = s_tt[s]; o_int[t0 + s] = s_ti[s];
-      o_left[t0 + s] = s_tl[s]; o_right[t0 + s] = s_tr[s]; o_value[t0 + s] = s_ng[s];
+    // ---- leaf values and the boosting update ----
+    __syncthreads();  // every warp has read the node gains (a step may have broken out)
+    MARK(TO_LEAF);
+    for (int k = tid; k < n_total; k += nt) s.ng[k] = __fdiv_rn(s.nswy[k], fmaxf(s.nsw[k], EPS));
+    __syncthreads();
+    const float sc = scale != nullptr ? scale[(size_t)t * n_chains + c] : 0.0f;
+    float dev[2] = {0.0f, 0.0f};
+    for (int i = tid; i < n; i += nt) {
+      const float fo = s.f[i];
+      const float fn = __fadd_rn(fo, __fmul_rn(lr, s.ng[s.cur[i]]));
+      const float fi = scale != nullptr ? __fadd_rn(fo, __fmul_rn(sc, __fsub_rn(fn, fo))) : fn;
+      s.f[i] = fi;
+      if (dev_out != nullptr) {
+        const float r = __fsub_rn(y[row0 + i], fi);
+        const float r2 = __fmul_rn(r, r);
+        dev[0] = __fadd_rn(dev[0], __fmul_rn(dev_w[row0 + i], r2));
+        dev[1] = __fadd_rn(dev[1], __fmul_rn(dev_w[(size_t)n_chains * n + row0 + i], r2));
+      }
     }
-    for (int j = tid; j < p; j += nt) o_vg[(size_t)blockIdx.x * p + j] = s_vg[j];
+    if (o_feat != nullptr) {
+      const size_t t0 = ((size_t)t * n_chains + c) * n_total;
+      for (int k = tid; k < n_total; k += nt) {
+        o_feat[t0 + k] = s.tf[k]; o_thr[t0 + k] = s.tt[k]; o_int[t0 + k] = s.ti[k];
+        o_left[t0 + k] = s.tl[k]; o_right[t0 + k] = s.tr[k]; o_value[t0 + k] = s.ng[k];
+      }
+      for (int j = tid; j < p; j += nt) o_vg[((size_t)t * n_chains + c) * p + j] = s.vg[j];
+    }
+    if (dev_out != nullptr) {
+      block_sum<2>(dev, s.tot);
+      if (tid == 0) {
+        dev_out[((size_t)t * n_chains + c) * 2] = dev[0];
+        dev_out[((size_t)t * n_chains + c) * 2 + 1] = dev[1];
+      }
+    }
+    __syncthreads();
+    MARK(LEAF_UPDATE);
   }
+  for (int i = tid; i < n; i += nt) f_out[row0 + i] = s.f[i];
 }
 
 }  // namespace
@@ -333,17 +441,34 @@ extern "C" int tree_grow_smem_bytes(int n, int p, int nb, int n_splits) {
   return (int)make_layout(n, p, nb, 2 * n_splits + 1).total;
 }
 
-// xbt (p, n) uint8 bins < nb; y, f, w, f_out (n_chains, n) float32; with the
-// tree outputs (all non-NULL or all NULL): feat, thr, left, right int32 and
-// internal, value float32 (n_chains, 2 n_splits + 1), var_gain float32
-// (n_chains, p).  Contiguous, on the device of `stream`.  Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for unsupported sizes).
-extern "C" int tree_grow_launch(const void* xbt, const void* y, const void* f, const void* w,
-                                void* f_out, void* feat, void* thr, void* internal, void* left,
-                                void* right, void* value, void* var_gain,
-                                int n_chains, int n, int p, int nb, int n_splits,
-                                float min_leaf, float lr, void* stream) {
-  if (n_chains <= 0 || n <= 0 || p <= 0 || nb < 2 || nb > 256 || n_splits < 1 || n_splits > MAX_SPLITS) {
+#ifdef K2_PROBE
+// The cycles of each section since the last read (N_SECTIONS of them, in
+// the order of enum Section), then zeroed.  Returns a cudaError_t.
+extern "C" int tree_grow_read_sections(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_section_cycles, sizeof(unsigned long long) * N_SECTIONS);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[N_SECTIONS] = {};
+  return (int)cudaMemcpyToSymbol(g_section_cycles, zero, sizeof(zero));
+}
+#endif
+
+// xbt (p, n) uint8 bins < nb; order (p, n) int16 each feature's rows sorted
+// by bin (stable); offsets (p, nb + 1) int32 each bin's start in order; y,
+// f_in, f_out (n_chains, n) float32; bags (n_trees, n_chains, n) float32
+// row weights of each tree; scale (n_trees, n_chains) float32 or NULL; with
+// the tree outputs (all non-NULL or all NULL): feat, thr, left, right int32
+// and internal, value float32 (n_trees, n_chains, 2 n_splits + 1), var_gain
+// float32 (n_trees, n_chains, p); dev_w (2, n_chains, n) float32 and dev_out
+// (n_trees, n_chains, 2) float32, both or neither.  Contiguous, on the
+// device of `stream`.  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for unsupported sizes).
+extern "C" int tree_grow_launch(const void* xbt, const void* order, const void* offsets, const void* y,
+                                const void* f_in, const void* bags, const void* scale, const void* dev_w,
+                                void* f_out, void* feat, void* thr, void* internal, void* left, void* right,
+                                void* value, void* var_gain, void* dev_out, int n_trees, int n_chains, int n,
+                                int p, int nb, int n_splits, float min_leaf, float lr, void* stream) {
+  if (n_trees <= 0 || n_chains <= 0 || n <= 0 || n > 32767 || p <= 0 || nb < 2 || nb > 256 || n_splits < 1 ||
+      n_splits > MAX_SPLITS || (dev_w == nullptr) != (dev_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_total = 2 * n_splits + 1;
@@ -357,14 +482,19 @@ extern "C" int tree_grow_launch(const void* xbt, const void* y, const void* f, c
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int cols = p * nb;
-  int threads = ((cols > 32 ? cols : 32) + 31) / 32 * 32;
-  if (threads > 1024) threads = 1024;
-  tree_grow_kernel<<<n_chains, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xbt), static_cast<const float*>(y), static_cast<const float*>(f),
-      static_cast<const float*>(w), static_cast<float*>(f_out), static_cast<int*>(feat),
-      static_cast<int*>(thr), static_cast<float*>(internal), static_cast<int*>(left),
+  // one thread per (feature, padded bin), at most as many as the kernel's
+  // registers allow in one block, in whole warps (the column loops need them)
+  cudaFuncAttributes attr;
+  const cudaError_t ea = cudaFuncGetAttributes(&attr, tree_grow_kernel);
+  if (ea != cudaSuccess) return (int)ea;
+  const int cols = p * padded_bins(nb), cap = attr.maxThreadsPerBlock / 32 * 32;
+  tree_grow_kernel<<<n_chains, cols < cap ? cols : cap, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xbt), static_cast<const int16_t*>(order), static_cast<const int*>(offsets),
+      static_cast<const float*>(y), static_cast<const float*>(f_in), static_cast<const float*>(bags),
+      static_cast<const float*>(scale), static_cast<const float*>(dev_w), static_cast<float*>(f_out),
+      static_cast<int*>(feat), static_cast<int*>(thr), static_cast<float*>(internal), static_cast<int*>(left),
       static_cast<int*>(right), static_cast<float*>(value), static_cast<float*>(var_gain),
-      n, p, nb, n_splits, min_leaf, lr);
+      static_cast<float*>(dev_out), n_trees, n_chains, n, p, nb, n_splits, min_leaf, lr);
   return (int)cudaGetLastError();
 }
+

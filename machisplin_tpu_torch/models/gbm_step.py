@@ -19,8 +19,9 @@ The selection rules are those of the vendored Elith/Leathwick gbm.step
 
 Every chain — (outer fold, inner fold) pairs in the CV, (response, inner
 fold) pairs in the finals — grows on ONE table of full-data quantile bins,
-so one launch of kernel K2 (``ops/tree_grow.py``) advances all of them by a
-tree.  Chains are float32, as K2's are.
+so one launch of kernel K2 (``ops/tree_grow.gbm_tree_cycle``) advances all
+of them by a cycle of ``step_size`` trees, as the JAX package's cycle
+program does.  Chains are float32, as K2's are.
 
 Randomness can be injected: ``selectors=`` fixes the fold memberships and
 ``bags=`` the bag draws (the JAX package's threefry streams cannot be drawn
@@ -39,7 +40,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.tree_grow import gbm_tree_update, prepare_bins
+from ..ops.tree_grow import gbm_tree_cycle, prepare_bins
 from . import brt
 from .trees import Tree, bin_data, edges_lookup, make_bins
 
@@ -53,6 +54,9 @@ _LATER_SERIAL = (
     "comes with a later slice of the port"
 )
 _LATER_BINS = "only global_bins=True is ported; the shared and per-fold bins branches come with a later slice"
+
+# gbm.step's trees per cycle (its step.size): one K2 launch each
+STEP_SIZE = 50
 
 
 class GBMStepResult(NamedTuple):
@@ -162,7 +166,15 @@ def _grow_inputs(x, n_bins):
     """Global bins and K2's inputs made from them (``prepare_bins``)."""
     edges = make_bins(x, n_bins)                              # (p, nb - 1)
     xb = bin_data(x, edges)                                   # (n, p)
-    return (edges, xb) + prepare_bins(xb, n_bins)
+    return edges, xb, prepare_bins(xb, n_bins)
+
+
+def _stack_bags(bags, t0: int, count: int, shape, device, weights) -> torch.Tensor:
+    """(count, C, n) row weights of trees t0 .. t0 + count - 1: each tree's
+    bag draw ``bags(t)`` as float32 times ``weights``."""
+    draws = torch.stack([torch.as_tensor(bags(t0 + i), device=device).reshape(shape).to(torch.float32)
+                         for i in range(count)])
+    return draws * weights
 
 
 def _cv_deviance_curve_multi(
@@ -171,8 +183,9 @@ def _cv_deviance_curve_multi(
     generator: torch.Generator | None = None,
 ) -> MultiCurve:
     """All OUTER chains' gbm.step CV curves, batched: F x K boosting chains
-    advance one K2 launch per tree, with the checkpoint/stop bookkeeping on
-    the host; each outer chain freezes at its own stopping checkpoint.
+    advance one K2 launch per ``step_size``-tree cycle, with the
+    checkpoint/stop bookkeeping on the host; each outer chain freezes at its
+    own stopping checkpoint.
 
     w_outer (F, n) training masks; ``y`` (n,) or (F, n); ``selectors``
     (F, n) inner-fold ids (drawn from ``generator`` when None); ``bags(t)``
@@ -194,7 +207,7 @@ def _cv_deviance_curve_multi(
     fold_ids = torch.arange(n_folds, device=dev_)
     train_w = (selectors[:, None, :] != fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
     test_w = (selectors[:, None, :] == fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
-    edges, xb, xbt, cum1h = _grow_inputs(x, n_bins)
+    edges, xb, tables = _grow_inputs(x, n_bins)
     test_sum = test_w.sum(2).clamp_min(1.0)
     train_sum = train_w.sum(2).clamp_min(1.0)
     f0 = (train_w * y[:, None, :]).sum(2) / train_sum          # (F, K)
@@ -214,11 +227,9 @@ def _cv_deviance_curve_multi(
     stopped = np.full((f_outer,), max_cp + 1, np.int64)
     j = t = 0
     while j < max_cp and np.any(stopped > max_cp):
-        for _ in range(step_size):
-            bag = torch.as_tensor(bags(t), device=dev_).reshape(c, n).to(f32) * tw_flat
-            fm = gbm_tree_update(xbt, cum1h, y_flat, fm, bag, n_splits=n_splits, nb=n_bins,
-                                 min_leaf=min_leaf, lr=lr)
-            t += 1
+        cycle = _stack_bags(bags, t, step_size, (c, n), dev_, tw_flat)
+        fm = gbm_tree_cycle(tables, y_flat, fm, cycle, n_splits=n_splits, nb=n_bins, min_leaf=min_leaf, lr=lr).f
+        t += step_size
         resid = y32[:, None, :] - fm.reshape(f_outer, n_folds, n)
         dev[j] = ((test_w32 * resid**2).sum(2) / test_sum32).cpu().numpy()
         fire = stopping_fired(dev[: j + 1].mean(axis=2), tolerance, win=win) & (stopped > max_cp)
@@ -230,14 +241,15 @@ def _cv_deviance_curve_multi(
 def _final_fits_global(
     x, ycols, best_trees, *, budget, n_splits, lr_vec, bag_fraction, min_leaf, n_bins,
     sample_w=None, with_deviance=False, emit_trees=False, bags: Callable | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, step_size: int = STEP_SIZE,
 ) -> dict:
-    """All chains' gaussian final refits, one K2 launch per tree under the
-    global bins.  K2 grows at lr = 1 and the loop here takes
-    ``f += lr_c * act_c * (f_new - f)``, which applies per-chain learning
-    rates (fit_multi's restarts) and the best.trees cut (trees past it
-    still grow on the frozen residuals and add nothing).  ``bags(t)`` gives
-    the (C, n) 0/1 bag draw of tree t, multiplied by ``sample_w``.
+    """All chains' gaussian final refits under the global bins, one K2
+    launch per ``step_size``-tree cycle.  K2 grows at lr = 1 and updates
+    ``f += lr_c * act_c * (f_new - f)`` after each tree, which applies
+    per-chain learning rates (fit_multi's restarts) and the best.trees cut
+    (trees past it still grow on the frozen residuals and add nothing).
+    ``bags(t)`` gives the (C, n) 0/1 bag draw of tree t, multiplied by
+    ``sample_w``.
 
     Returns a dict: f0 (C,), train_fit (C, n), tree_active (C, budget),
     edges; with ``emit_trees`` the trees' arrays (budget, C, .) feat,
@@ -251,7 +263,7 @@ def _final_fits_global(
     c = ycols.shape[0]
     w = torch.ones((c, n), dtype=f32, device=dev_) if sample_w is None else \
         torch.as_tensor(sample_w, device=dev_).to(f32)
-    edges, xb, xbt, cum1h = _grow_inputs(x, n_bins)
+    edges, xb, tables = _grow_inputs(x, n_bins)
     lr_col = torch.as_tensor(np.asarray(lr_vec), device=dev_).to(f32)[:, None]
     bt = torch.as_tensor(np.asarray(best_trees), device=dev_)
     act = (torch.arange(budget, device=dev_)[None, :] < bt[:, None]).to(f32)   # (C, budget)
@@ -261,29 +273,27 @@ def _final_fits_global(
     test_sum = test_w.sum(1).clamp_min(1.0)
     if bags is None:
         bags = _random_bags(generator, bag_fraction, (c, n), dev_, 50)
+    scale = (lr_col * act).T                                                   # (budget, C)
+    dev_w = torch.stack([w, test_w]).contiguous() if with_deviance else None
 
     f = f0[:, None].expand(c, n).contiguous()
-    trees, tdev, hdev = [], [], []
-    for t in range(budget):
-        bag = torch.as_tensor(bags(t), device=dev_).reshape(c, n).to(f32) * w
-        out = gbm_tree_update(xbt, cum1h, ycols, f, bag, n_splits=n_splits, nb=n_bins,
-                              min_leaf=min_leaf, lr=1.0, emit_tree=emit_trees)
-        f_new = out[0] if emit_trees else out
-        f = f + (lr_col * act[:, t : t + 1]) * (f_new - f)
-        if emit_trees:
-            trees.append(out[1:])
-        if with_deviance:
-            r2 = (ycols - f) ** 2
-            tdev.append((w * r2).sum(1) / wsum)
-            hdev.append((test_w * r2).sum(1) / test_sum)
+    cycles = []
+    for t0 in range(0, budget, step_size):
+        count = min(step_size, budget - t0)
+        out = gbm_tree_cycle(tables, ycols, f, _stack_bags(bags, t0, count, (c, n), dev_, w), n_splits=n_splits,
+                             nb=n_bins, min_leaf=min_leaf, lr=1.0, scale=scale[t0 : t0 + count].contiguous(),
+                             emit_tree=emit_trees, deviance_w=dev_w)
+        f = out.f
+        cycles.append(out)
     res = dict(f0=f0, train_fit=f, tree_active=act, edges=edges)
     if emit_trees:
         names = ("feat", "thr_bin", "internal", "left", "right", "value", "var_gain")
         for k, name in enumerate(names):
-            res[name] = torch.stack([tr[k] for tr in trees])                   # (budget, C, .)
+            res[name] = torch.cat([cy.trees[k] for cy in cycles])              # (budget, C, .)
     if with_deviance:
-        res["train_deviance"] = torch.stack(tdev)
-        res["holdout_deviance"] = torch.stack(hdev)
+        sums = torch.cat([cy.deviance for cy in cycles])                        # (budget, C, 2)
+        res["train_deviance"] = sums[:, :, 0] / wsum
+        res["holdout_deviance"] = sums[:, :, 1] / test_sum
     return res
 
 
@@ -293,7 +303,7 @@ def _stage_bags(bags, stage):
 
 def fit_outer_batched(
     x, y, outer_train_w, *, tree_complexity: int = 25, learning_rate: float = 0.01,
-    bag_fraction: float = 0.5, n_folds: int = 10, step_size: int = 50, max_trees: int = 10000,
+    bag_fraction: float = 0.5, n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000,
     tolerance=None, min_leaf: float = 10.0, n_bins: int = 64, global_bins: bool = True,
     selectors=None, bags: Callable | None = None, generator: torch.Generator | None = None,
 ):
@@ -341,13 +351,14 @@ def fit_outer_batched(
         x, y, best_trees, budget=budget, n_splits=tree_complexity,
         lr_vec=np.full(f_outer, learning_rate), bag_fraction=bag_fraction, min_leaf=min_leaf,
         n_bins=n_bins, sample_w=outer_train_w, bags=_stage_bags(bags, ("final", budget)), generator=generator,
+        step_size=step_size,
     )
     return res["train_fit"], best_trees
 
 
 def fit_multi(
     x, ycols, *, tree_complexity: int = 5, learning_rate: float = 0.001, bag_fraction: float = 0.5,
-    n_folds: int = 10, step_size: int = 50, max_trees: int = 10000, tolerance=None,
+    n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000, tolerance=None,
     min_leaf: float = 10.0, n_bins: int = 64, max_restarts: int = 3, statistics: bool = False,
     global_bins: bool = True, selectors=None, bags: Callable | None = None,
     generator: torch.Generator | None = None,
@@ -420,7 +431,7 @@ def fit_multi(
     res = _final_fits_global(
         x, ycols.T, best_trees, budget=budget, n_splits=tree_complexity, lr_vec=lr_used,
         bag_fraction=bag_fraction, min_leaf=min_leaf, n_bins=n_bins, with_deviance=True,
-        emit_trees=True, bags=_stage_bags(bags, ("final", budget)), generator=generator,
+        emit_trees=True, bags=_stage_bags(bags, ("final", budget)), generator=generator, step_size=step_size,
     )
     edges = res["edges"]                                        # (p, nb - 1)
     tr = lambda key: res[key].transpose(0, 1)                    # (R, budget, .)

@@ -93,9 +93,9 @@ def test_k2_wrapper_takes_float32_only():
 
 def test_prepare_bins_gives_the_plain_version_its_table():
     xb = torch.as_tensor(np.random.default_rng(3).integers(0, 4, (10, 2)))
-    xbt, cum1h = ttg.prepare_bins(xb, 4)
-    assert torch.equal(xbt, xb.T)
-    assert torch.equal(cum1h, ttrees.flat_bin_cum_onehot(xb, 4))
+    tables = ttg.prepare_bins(xb, 4)
+    assert torch.equal(tables.xbt, xb.T)
+    assert torch.equal(tables.cum1h, ttrees.flat_bin_cum_onehot(xb, 4))
 
 
 def _outer_bags(key, f_outer, n_folds, n, bag_fraction):

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
-(tree grower) and K3 (forest predictor).
+(tree grower, one tree and a 50-tree cycle per launch) and K3 (forest
+predictor).
 
 These tests need a CUDA device and nvcc; they skip without them.  They import
 nothing of JAX, so they also run where JAX is not installed:
@@ -78,20 +79,27 @@ def _k2_inputs(c, n, p, nb, device, seed=0):
     (7, 150, 3, 16, 4),       # a few chains, tiny
     (200, 813, 5, 64, 25),    # the CV shape of the main path
     (20, 813, 5, 64, 5),      # the finals' shape
+    (5, 300, 20, 64, 6),      # more columns than a block has threads: two passes over them
+    (4, 500, 2, 256, 4),      # eight warps a feature: the scan carries across seven
 ])
 def test_k2_matches_plain(cuda, c, n, p, nb, n_splits):
     """Same trees as the plain version, except at near-ties of float32
-    summation order (relative gain gap <= 1e-5); f to 1e-5 of the residuals."""
+    summation order (relative gain gap <= 1e-5); f to 1e-5 of the residuals.
+    Prepared tables and raw bins launch the same kernel with the same result."""
     xb, ys, fs, ws = _k2_inputs(c, n, p, nb, cuda)
-    kw = dict(n_splits=n_splits, nb=nb, min_leaf=10.0, lr=0.05, emit_tree=True)
-    before = ttgrow.LAUNCHES["tree_grow"]
-    got = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **kw)
+    kw = dict(n_splits=n_splits, nb=nb, min_leaf=10.0, lr=0.05)
+    tables = ttgrow.prepare_bins(xb, nb)
+    before = dict(ttgrow.LAUNCHES)
+    out = ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], emit_tree=True, **kw)
     torch.cuda.synchronize()
-    assert ttgrow.LAUNCHES["tree_grow"] - before == 1
-    want = ttgrow.gbm_tree_update_plain(xb.T, None, ys, fs, ws, **kw)
+    assert {k: ttgrow.LAUNCHES[k] - before[k] for k in before} == {"tree_grow": 1, "tree_grow_trees": 1}
+    got = (out.f,) + tuple(a[0] for a in out.trees)
+    want = ttgrow.gbm_tree_update_plain(xb.T, None, ys, fs, ws, emit_tree=True, **kw)
+    raw = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, emit_tree=True, **kw)
+    for a, b in zip(got, raw):
+        assert torch.equal(a, b)
     got = [a.cpu().numpy() for a in got]
     want = [a.cpu().numpy() for a in want]
-    same = np.all([np.array_equal(g, w) for g, w in zip(got[1:6], want[1:6])], axis=0)
     r = (ys - fs).cpu().numpy()
     scale = float(np.abs(r).max())
     for ch in range(c):
@@ -102,8 +110,70 @@ def test_k2_matches_plain(cuda, c, n, p, nb, n_splits):
         assert gap is None or gap <= 1e-5, (ch, gap)
         if gap is None:
             np.testing.assert_allclose(got[0][ch], want[0][ch], rtol=0, atol=1e-5 * scale)
-    f_only = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **dict(kw, emit_tree=False))
+    f_only = ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], **kw).f
     np.testing.assert_array_equal(f_only.cpu().numpy(), got[0])
+
+
+@pytest.mark.parametrize("finals_update", [False, True], ids=["f_only", "emit_scale_deviance"])
+@pytest.mark.parametrize("c,n_splits", [(200, 25), (20, 5)], ids=["cv_shape", "finals_shape"])
+def test_k2_cycle_matches_single(cuda, c, n_splits, finals_update):
+    """A 50-tree cycle in one launch is bit-identical to 50 one-tree
+    launches of the same kernel: f, and with the finals' update the trees
+    and deviance sums; the counts say 1 launch of 50 trees, then 50 of 1.
+    Against the plain version grown from the same inputs, each chain's trees
+    part only at near-ties (relative gain gap <= 1e-5); where a chain's 50
+    trees all agree, f is within 1e-5 of the residuals and the deviance sums
+    within 1e-4 (relative)."""
+    n, p, nb = 813, 5, 64
+    xb, ys, fs, ws = _k2_inputs(c, n, p, nb, cuda, seed=3)
+    tables = ttgrow.prepare_bins(xb, nb)
+    rng = np.random.default_rng(4)
+    bags = torch.as_tensor((rng.uniform(size=(50, c, n)) < 0.5).astype(np.float32), device=cuda) * ws
+    kw = dict(n_splits=n_splits, nb=nb, min_leaf=10.0, lr=0.05)
+    if finals_update:
+        kw.update(lr=1.0, emit_tree=True, deviance_w=torch.stack([ws, (ws <= 0).float()]).contiguous(),
+                  scale=torch.as_tensor(rng.uniform(0, 0.01, (50, c)).astype(np.float32), device=cuda))
+    before = dict(ttgrow.LAUNCHES)
+    cyc = ttgrow.gbm_tree_cycle(tables, ys, fs, bags, **kw)
+    torch.cuda.synchronize()
+    assert {k: ttgrow.LAUNCHES[k] - before[k] for k in before} == {"tree_grow": 1, "tree_grow_trees": 50}
+    f, outs = fs, []
+    for t in range(50):
+        one = dict(kw, scale=kw["scale"][t : t + 1]) if finals_update else kw
+        out = ttgrow.gbm_tree_cycle(tables, ys, f, bags[t : t + 1], **one)
+        f = out.f
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert {k: ttgrow.LAUNCHES[k] - before[k] for k in before} == {"tree_grow": 51, "tree_grow_trees": 100}
+    assert torch.equal(cyc.f, f)
+    assert bool(torch.isfinite(cyc.f).all())
+    if finals_update:
+        for k in range(7):
+            assert torch.equal(cyc.trees[k], torch.cat([o.trees[k] for o in outs])), k
+        assert torch.equal(cyc.deviance, torch.cat([o.deviance for o in outs]))
+        assert int(cyc.trees[2].sum()) > 0                 # the trees split
+    grown = cyc if finals_update else ttgrow.gbm_tree_cycle(tables, ys, fs, bags, emit_tree=True, **kw)
+    assert torch.equal(grown.f, cyc.f)
+    agree = ttgrow.cycle_agreement(xb, ys, fs, bags, grown, **{k: v for k, v in kw.items() if k != "emit_tree"})
+    assert all(g[2] <= 1e-5 for g in agree["gaps"]), agree["gaps"]
+    assert agree["identical_chains"] > 0
+    assert agree["max_abs_err"] <= 1e-5 * agree["resid_scale"]
+    if finals_update:
+        assert agree["max_rel_err_deviance"] <= 1e-4
+
+
+def test_k2_wrapper_checks_inputs(cuda):
+    xb, ys, fs, ws = _k2_inputs(3, 100, 2, 16, cuda)
+    kw = dict(n_splits=3, nb=16, min_leaf=5.0, lr=0.1)
+    tables = ttgrow.prepare_bins(xb, 16)
+    before = dict(ttgrow.LAUNCHES)
+    with pytest.raises(ValueError, match="bags"):
+        ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None, :2], **kw)
+    with pytest.raises(ValueError, match="xbt must be on"):
+        ttgrow.gbm_tree_cycle(ttgrow.prepare_bins(xb.cpu(), 16), ys, fs, ws[None], **kw)
+    with pytest.raises(ValueError, match="offsets"):
+        ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], **dict(kw, nb=8))
+    assert ttgrow.LAUNCHES == before
 
 
 @pytest.mark.parametrize("n_cols", [None, 2, 5])
@@ -111,12 +181,9 @@ def test_k3_matches_plain(cuda, n_cols):
     """Exact leaf membership counts, weighted sums to 1e-5 of sum |w v|."""
     xb, ys, fs, ws = _k2_inputs(2, 400, 5, 64, cuda, seed=1)
     kw = dict(n_splits=5, nb=64, min_leaf=10.0, lr=1.0, emit_tree=True)
-    trees = []
-    for _ in range(30):
-        out = ttgrow.gbm_tree_update(xb.T, None, ys, fs, ws, **kw)
-        trees.append(out[1:])
-        fs = fs + 0.1 * (out[0] - fs)
-    stack = [torch.cat([t[k] for t in trees]).cpu() for k in range(7)]
+    cyc = ttgrow.gbm_tree_cycle(ttgrow.prepare_bins(xb, 64), ys, fs, ws.expand(30, *ws.shape).contiguous(),
+                                scale=torch.full((30, ws.shape[0]), 0.1, device=cuda), **kw)
+    stack = [a.reshape(-1, a.shape[-1]).cpu() for a in cyc.trees]
     edges = ttrees.make_bins(torch.rand(400, 5, dtype=torch.float64), 64)
     tree = ttrees.Tree(feat=stack[0].long(), thr=ttrees.edges_lookup(edges, stack[0], stack[1]).float(),
                        internal=stack[2], left=stack[3].long(), right=stack[4].long(), value=stack[5],
