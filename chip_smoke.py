@@ -8,7 +8,8 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
 * ``build``: compiles every CUDA kernel of ``machisplin_tpu_torch/csrc`` with
   nvcc (one process per source) and loads it with ctypes;
 * ``kernel_k1``: runs the TPS grid kernel on a full-resolution tile of the
-  main path's tiling (real knots from a spline fit on ``sampling.csv``, two
+  main path's tiling (real knots from a spline fit on ``sampling.csv``
+  packed to their knot budget, of which the tables keep the live ones; two
   responses) and holds it against its plain PyTorch version to
   2e-4 * max|surface|, with CUDA-event times for both and the kernel's bound;
 * ``mltps_gm``: the main path, ``mltps(load_sampling(),
@@ -35,8 +36,13 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   keeping "b", every r^2 within 0.01 of the JAX package's value for key 0
   (``tools/record_jax_b_r2.py``);
 * ``kernel_k3``: the forest predictor K3 against its plain version on one
-  full-width 256-row panel of the grid with the forest ``mltps_b`` built:
-  leaf-membership counts equal, weighted sums within 1e-5 of sum |w v|.
+  full-width 256-row panel of the grid, with the forest ``mltps_b`` built
+  (every tree in the outcome-table loop) and with K2-grown trees of 6 and 9
+  splits (the 9-split trees in the slot loop of the same launch):
+  leaf-membership counts equal, weighted sums within 1e-5 of sum |w v|; the
+  bound from the path compares and adds these cells need, which must not
+  exceed the kernel's time; the 6-split trees timed tabled and slot-tested
+  (the measurement behind ``ops/forest.S_MAX``).
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -152,22 +158,33 @@ def _largest_tile():
     return g, coords, ys, -(-int(sel.sum()) // 64) * 64
 
 
-def phase_kernel_k1():
+def k1_tables():
+    """K1's tables on the card for the largest tile, as the main path builds
+    them: a spline fitted to the tile's stations packed to their knot budget
+    (float64), then float32 tables.  Returns (tables, grid, stations,
+    budget)."""
     import torch
 
     from machisplin_tpu_torch.ops import tps_grid
     from machisplin_tpu_torch.parallel.tiles import batched_tile_solve, pack_tiles
 
-    t0 = time.perf_counter()
     g, coords, ys, budget = _largest_tile()
     ct, yt, mt_ = pack_tiles([coords], [ys], pad_to=budget, dtype=torch.float64, device="cuda")
     model = batched_tile_solve(ct, yt, mt_)
     model = type(model)(*(a[0] for a in model))
-    tab = tps_grid.grid_tables(model, g, torch.float32)
-    # the function needs only the live stations; the budget's padded knots
-    # have c = 0 and are evaluated but add nothing
-    n_knots, n_resp = len(coords), model.c.shape[1]
-    n_pad = tab.c.shape[1]
+    return tps_grid.grid_tables(model, g, torch.float32), g, len(coords), budget
+
+
+def phase_kernel_k1():
+    import torch
+
+    from machisplin_tpu_torch.ops import tps_grid
+
+    t0 = time.perf_counter()
+    tab, g, n_knots, budget = k1_tables()
+    # the function needs only the live stations: the tables leave out the
+    # budget's padded knots (c = 0) and pad the rest to the unroll width
+    n_resp, n_pad = tab.c.shape
 
     got = tps_grid.tps_grid_cuda(tab, g)
     want = tps_grid.tps_grid_plain(tab, g, block_rows=64)
@@ -186,11 +203,11 @@ def phase_kernel_k1():
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     res = {
         "phase": "kernel_k1", "seconds": time.perf_counter() - t0,
-        "tile": [g.nrows, g.ncols], "cells": cells, "knots": n_knots, "knots_padded": n_pad,
+        "tile": [g.nrows, g.ncols], "cells": cells, "knots": n_knots, "knots_budget": budget, "knots_evaluated": n_pad,
         "responses": n_resp, "phi_pairs": pairs, "phi_evaluated": cells * n_pad,
         "max_abs_err": err, "max_abs_surface": scale, "tolerance": K1_TOL * scale,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ptxas": _ptxas_summary("tps_grid"),
     }
     emit(res)
     if not err <= K1_TOL * scale:
@@ -552,6 +569,7 @@ def phase_mltps_b(captured: dict):
 
     def prepare_seen(*a, **kw):
         captured["forest"] = prepare(*a, **kw)
+        captured["forest_trees"], captured["leaf_tables"] = a[0], a[2]
         return captured["forest"]
 
     gbm_step.fit_multi, mltps_mod.prepare_forest = fit_multi_seen, prepare_seen
@@ -592,7 +610,9 @@ def phase_mltps_b(captured: dict):
         "launches": launches, "k2_cv": cv_k2,
         "k2_finals": {k: launches[k] - cv_k2.get(k, 0) for k in ("tree_grow", "tree_grow_trees")},
         "finals_best_trees_restarts_lr_fitted": captured.get("finals"),
-        "forest_slots": None if ft is None else int(ft.lo_w.shape[0]),
+        "forest_slots": None if ft is None else int(ft.lo.shape[1]),
+        "forest_trees_tabled": None if ft is None else int(ft.desc.shape[0]),
+        "forest_loop_slots": None if ft is None else int(ft.loop_slot.numel()),
         "layers": layers, "jax_reference": JAX_REFERENCE_B, "r2_tol": R2_TOL_B, "jax_key_spread": R2_SPREAD_B,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
@@ -607,23 +627,28 @@ def phase_mltps_b(captured: dict):
     return launches
 
 
-def phase_kernel_k3(captured: dict):
-    """K3 against its plain version on one full-width 256-row panel of the
-    grid, with the merged forest that mltps_b built."""
+def k3_panel(cov):
+    """The cells of one full-width 256-row panel in the middle of the grid,
+    as the raster pass gives them to K3: the covariates and lon/lat, float32,
+    non-finite rows set to 0.  Returns (first row, (m, p) cells)."""
     import torch
 
     from machisplin_tpu_torch.grid import lonlat_rasters, stack
-    from machisplin_tpu_torch.ops import forest
 
-    t0 = time.perf_counter()
-    ft = captured["forest"]
-    cov = captured["stack"]
     rs = stack([cov, lonlat_rasters(cov.grid, cov.data.dtype, cov.data.device)])
-    h = rs.data.shape[1]
-    r0 = (h // 2) // 256 * 256
+    r0 = (rs.data.shape[1] // 2) // 256 * 256
     blk = rs.data[:, r0 : r0 + 256, :]
     x = blk.movedim(0, -1).reshape(-1, blk.shape[0]).to(torch.float32)
-    x = torch.where(torch.isfinite(x).all(1, keepdim=True), x, torch.zeros((), device=x.device))
+    return r0, torch.where(torch.isfinite(x).all(1, keepdim=True), x, torch.zeros((), device=x.device))
+
+
+def _k3_check(ft, x) -> dict:
+    """K3 against its plain version on cells ``x``: leaf-membership counts
+    (every slot value 1) equal, weighted sums within K3_TOL of sum |w v|."""
+    import torch
+
+    from machisplin_tpu_torch.ops import forest
+
     got = forest.forest_predict_cuda(ft, x)
     want = forest.forest_predict_plain(ft, x)
     ones = ft._replace(wv=torch.ones((ft.wv.shape[0], 1), device=x.device), offset=ft.offset[:1])
@@ -632,38 +657,159 @@ def phase_kernel_k3(captured: dict):
     torch.cuda.synchronize()
     err = (got - want).abs().max(0).values
     scale = ft.wv.abs().sum(0)
+    return {"trees_tabled": int(ft.desc.shape[0]), "rows_per_tree": int(ft.row_slot.shape[1]),
+            "loop_slots": int(ft.loop_slot.numel()), "membership_counts_equal": counts_equal,
+            "max_abs_err": err.tolist(), "sum_abs_wv": scale.tolist(), "matches": int(counts.sum()),
+            "agrees": counts_equal and bool((err <= K3_TOL * scale).all())}
+
+
+def _k3_path_work(trees, tables, ft, x):
+    """What the function needs for these cells (plain routing,
+    models/trees.tree_assign): per cell and tree, one compare for each split
+    node on the path from the root to the cell's leaf, and one add for each
+    nonzero weighted value of the leaf's slot (R where every weight is
+    nonzero; the dropped leaf needs none).  Returns (compares, adds)."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.models import trees as ttrees
+
+    internal = trees.internal.cpu().numpy() > 0
+    left, right = trees.left.cpu().numpy().astype(np.int64), trees.right.cpu().numpy().astype(np.int64)
+    n_t, n_nodes = internal.shape
+    depth = np.zeros((n_t, n_nodes), np.int64)
+    rows = np.arange(n_t)[:, None]
+    for _ in range(n_nodes):          # relax until every child sits one below its parent
+        for child in (left, right):
+            depth[rows, child] = np.where(internal, depth + 1, depth[rows, child])
+    real = np.flatnonzero(tables.leaf_tree >= 0)
+    nnz = np.zeros((n_t, n_nodes), np.int64)
+    nnz[tables.leaf_tree[real], tables.leaf_node[real]] = (ft.wv[torch.as_tensor(real, device=ft.wv.device)]
+                                                          != 0).sum(1).cpu().numpy()
+    dev = x.device
+    depth_t, nnz_t = torch.as_tensor(depth, device=dev), torch.as_tensor(nnz, device=dev)
+    max_depth = int(internal.sum(1).max())
+    chunk = 128                       # trees routed at once: (128, m) int64 routes
+    compares = adds = 0
+    for t0 in range(0, n_t, chunk):
+        part = ttrees.Tree(*(a[t0 : t0 + chunk].to(dev) for a in trees))
+        leaf = ttrees.tree_assign(part, x, max_depth)                       # (tc, m)
+        compares += int(depth_t[t0 : t0 + chunk].gather(1, leaf).sum())
+        adds += int(nnz_t[t0 : t0 + chunk].gather(1, leaf).sum())
+    return compares, adds
+
+
+def _k3_grown_forest(n_splits_list):
+    """Trees grown by K2 at the finals' shape (20 chains, stations' bins),
+    one K2_CYCLE-tree cycle for each tree complexity in ``n_splits_list``, as one
+    Tree of raw thresholds (node arrays padded to the largest), with seeded
+    (T, 2) weights."""
+    import torch
+
+    from machisplin_tpu_torch.models import trees as ttrees
+    from machisplin_tpu_torch.ops import tree_grow
+
+    inp = k2_inputs()
+    sh, nb = inp["shapes"]["finals"], inp["nb"]
+    x = torch.as_tensor(_stations()[0], device="cuda")
+    edges = ttrees.make_bins(x, nb)
+    y, w = sh["y"], sh["w"]
+    c, n = y.shape
+    f = ((w * y).sum(1) / w.sum(1).clamp_min(1.0))[:, None].expand(c, n).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n_trees, parts = K2_CYCLE, []
+    for n_splits in n_splits_list:
+        bags = (torch.rand((n_trees, c, n), generator=g, device="cuda") < 0.5).float() * w
+        cyc = tree_grow.gbm_tree_cycle(inp["tables"], y, f, bags, n_splits=n_splits, nb=nb, min_leaf=inp["min_leaf"],
+                                       lr=1.0, emit_tree=True, scale=torch.full((n_trees, c), sh["lr"], device="cuda"))
+        parts.append([a.reshape(n_trees * c, -1) for a in cyc.trees])
+    n_nodes = max(pt[0].shape[1] for pt in parts)
+    pad = lambda a: torch.nn.functional.pad(a, (0, n_nodes - a.shape[1])) if a.shape[1] < n_nodes else a
+    feat, thr_bin, internal, left, right, value = (torch.cat([pad(pt[k]) for pt in parts]) for k in range(6))
+    tree = ttrees.Tree(feat=feat.long().cpu(), thr=ttrees.edges_lookup(edges, feat, thr_bin).float().cpu(),
+                       internal=internal.cpu(), left=left.long().cpu(), right=right.long().cpu(),
+                       value=value.cpu(), var_gain=torch.zeros((feat.shape[0], x.shape[1])))
+    wts = torch.rand((feat.shape[0], 2), generator=torch.Generator().manual_seed(6))
+    return tree, wts
+
+
+def phase_kernel_k3(captured: dict):
+    """K3 against its plain version on one full-width 256-row panel of the
+    grid, with the merged forest that mltps_b built (every tree tabled) and
+    with K2-grown trees of 6 and 9 splits (the 9-split trees in the slot
+    loop of the same launch); the bound from the path work these cells
+    need; S_MAX's measurement (6-split trees tabled against slot-tested)."""
+    import torch
+
+    from machisplin_tpu_torch.ops import forest
+
+    t0 = time.perf_counter()
+    ft, trees, tables = captured["forest"], captured["forest_trees"], captured["leaf_tables"]
+    r0, x = k3_panel(captured["stack"])
+    main = _k3_check(ft, x)
     ms = cuda_ms(lambda: forest.forest_predict_cuda(ft, x), reps=5)
     plain_ms = cuda_ms(lambda: forest.forest_predict_plain(ft, x), reps=1)
     m, p = x.shape
     slots, n_resp = ft.wv.shape
-    # the work these tables and cells need: per cell, one compare for each
-    # bound a real slot constrains (lo > 0 or hi < n_bins - 1; padded slots
-    # and unconstrained bounds need none), and R adds for each slot the cell
-    # falls in (the membership counts above)
+    # the bound: the work the function needs for these cells (path compares
+    # and nonzero adds); bytes: the cells' features and the output once, each
+    # real slot's bounds and values once
+    compares, adds = _k3_path_work(trees, tables, ft, x)
+    # the host's share of forest_tables_b that the outcome tables add
+    t1 = time.perf_counter()
+    forest.outcome_tables(type(trees)(*(a.cpu() for a in trees)), tables)
+    outcome_s = time.perf_counter() - t1
     n_bins = int(torch.isfinite(ft.etab).sum(1).max()) + 1
     real = (ft.lo <= ft.hi).all(0)
-    bounds = int(((ft.lo[:, real] > 0).sum() + (ft.hi[:, real] < n_bins - 1).sum()))
-    matches = int(counts.sum())
     real_slots = int(real.sum())
-    ops = m * bounds + n_resp * matches
-    nbytes = 4 * m * (p + n_resp) + real_slots * (ft.lo_w.shape[1] * 8 + 4 * n_resp)
+    n_words = -(-p // 4)
+    nbytes = 4 * m * (p + n_resp) + real_slots * (n_words * 8 + 4 * n_resp)
+    ops = compares + adds
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    # PR 5's count, kept for the history in PERF.md: one compare per cell for
+    # each bound a real slot constrains, R adds for each slot a cell falls in
+    bounds = int(((ft.lo[:, real] > 0).sum() + (ft.hi[:, real] < n_bins - 1).sum()))
+    slot_ops = m * bounds + n_resp * main["matches"]
+
+    # a forest with trees above S_MAX: both loops in one launch
+    grown, wts = _k3_grown_forest([6, 9])
+    gtab = forest.build_leaf_bins(grown, n_feat=p)
+    gft = forest.prepare_forest(grown, wts, gtab, "cuda")
+    mixed = _k3_check(gft, x)
+    mixed["trees"] = int(grown.feat.shape[0])
+    mixed["ms"] = cuda_ms(lambda: forest.forest_predict_cuda(gft, x), reps=5)
+    # S_MAX: the 6-split trees alone, tabled (s_max 6) or slot-tested (s_max 5)
+    n6 = mixed["trees"] // 2
+    six = type(grown)(*(a[:n6] for a in grown))
+    six_tab = forest.build_leaf_bins(six, n_feat=p)
+    s_max_ms = {}
+    for s_max in (5, 6):
+        sft = forest.prepare_forest(six, wts[:n6], six_tab, "cuda", s_max=s_max)
+        s_max_ms[f"s_max_{s_max}"] = {"trees_tabled": int(sft.desc.shape[0]),
+                                      "ms": cuda_ms(lambda: forest.forest_predict_cuda(sft, x), reps=5)}
     res = {
         "phase": "kernel_k3", "seconds": time.perf_counter() - t0, "panel_rows": [r0, r0 + 256],
-        "cells": m, "features": p, "slots": slots, "real_slots": real_slots, "constrained_bounds": bounds,
-        "matches": matches, "responses": n_resp,
-        "membership_counts_equal": counts_equal, "max_abs_err": err.tolist(),
-        "sum_abs_wv": scale.tolist(), "tol": K3_TOL, "ms": ms, "plain_ms": plain_ms,
-        "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+        "cells": m, "features": p, "slots": slots, "real_slots": real_slots, "responses": n_resp,
+        "trees": int(trees.feat.shape[0]), **{k: v for k, v in main.items() if k != "agrees"},
+        "tol": K3_TOL, "ms": ms, "plain_ms": plain_ms,
+        "path_compares": compares, "adds": adds, "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "slot_count": {"constrained_bounds": bounds, "ops": slot_ops, "bound_ms": slot_ops / PEAK_F32_OPS * 1e3},
+        "mixed_forest": mixed, "six_split_trees": s_max_ms, "outcome_tables_host_s": outcome_s,
         "ptxas": _ptxas_summary("forest_predict"),
     }
     emit(res)
-    if not counts_equal:
-        raise RuntimeError("K3's leaf-membership counts differ from its plain version")
-    if not bool((err <= K3_TOL * scale).all()):
-        raise RuntimeError(f"K3 disagrees with its plain version: {err.tolist()} > {K3_TOL} * {scale.tolist()}")
-    res["max_abs_err"] = float(err.max())
+    failures = [f"K3 disagrees with its plain version on the {name} forest: counts equal "
+                f"{r['membership_counts_equal']}, err {r['max_abs_err']} > {K3_TOL} * {r['sum_abs_wv']}"
+                for name, r in (("main path's", main), ("mixed", mixed)) if not r["agrees"]]
+    if not mixed["trees_tabled"] or not mixed["loop_slots"]:
+        failures.append(f"the mixed forest did not run both loops: {mixed['trees_tabled']} trees tabled, "
+                        f"{mixed['loop_slots']} loop slots")
+    if not res["bound_ms"] <= ms:
+        failures.append(f"K3's bound {res['bound_ms']} ms lies above its time {ms} ms")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    res["max_abs_err"] = max(main["max_abs_err"])
     return res
 
 

@@ -7,90 +7,127 @@
 // it computes, for each response r,
 //   out[r] = sum_k c[r, k] * phi(r2_k) + d[r, 0] px + d[r, 1] py + d[r, 2],
 //   r2_k   = (kx_k - px)^2 + (ky_k - py)^2   (explicit differences),
-//   phi    = r2 * logf(fmaxf(r2, FLT_MIN))   (the 1/2 is folded into c).
+//   phi    = r2 * log(fmaxf(r2, FLT_MIN))    (the 1/2 is folded into c).
+// The host passes only the live knots (a knot budget's padding has c = 0
+// and adds nothing), padded with c = 0 to a multiple of UNROLL.
 //
-// What bounds it: one precise logf per (cell, knot) pair, shared by all R
-// responses, plus ~8 + 2R float32 operations around it.  The bytes are only
-// the R x cells float32 output and a few KB of tables, so the kernel is
-// bound by operations (the log's instruction sequence), not by memory.
+// What bounds it: operations.  The bytes are only the R x cells float32
+// output and a few KB of tables; the work is one log per (cell, knot) pair,
+// shared by all R responses, and ~8 + 2R float32 operations around it.
 //
-// Design: each thread owns CELLS cells (strided by the block size, so the
-// output stores of a warp are contiguous) and keeps their coordinates and
-// R float32 accumulators in registers.  The block stages the knot tables
-// through shared memory in chunks of CHUNK knots (kx, ky and the R
-// coefficient rows); every thread then reads each staged knot as a
-// broadcast, with no bank conflicts.  Knots are padded on the host to a
-// multiple of CHUNK with coordinate 0.5 and c = 0, so the inner loop has no
-// bounds test.  logf is the precise libm version: no fast-math, no __logf,
-// which would break the 2e-4 agreement with the plain version.
+// Design: a block covers THREADS * CELLS cells of one grid row, each thread
+// CELLS of them (strided by the block size, so a warp's stores are
+// contiguous) with R float32 accumulators in registers; the row's
+// (ky - py)^2 is computed once per knot and thread.  The block stages the
+// knot tables through shared memory in chunks of CHUNK knots (kx, ky and
+// the R coefficient rows), which every thread reads as broadcasts.  The log
+// is an explicit range reduction, a = 2^e m with m in [2/3, 4/3): e from
+// the exponent bits, turned into a float by adding it to the bits of
+// 1.5 * 2^23, and log(m) = f + f^2 q(f), f = m - 1, q a degree-7 polynomial
+// (least-squares fit on Chebyshev nodes): within 2 ulp of log on every
+// float32 m of [2/3, 4/3) and over [FLT_MIN, 8]
+// (tests/test_torch_tps.py::test_k1_log_within_two_ulp emulates it).
+// r2 >= FLT_MIN after the clamp, so there are no special cases (zero,
+// denormal, negative, infinite or NaN arguments) to handle.
+//
+// ptxas (nvcc -Xptxas -v, sm_90a, -O3, CUDA 12.8), R = 2, 256 threads x 3
+// cells (the block shape measured best by tools/block_tune.py): 48
+// registers, no spills, 2,048 bytes of shared memory.
 #include <cuda_runtime.h>
 #include <cfloat>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CELLS = 2;
+#ifndef K1_THREADS
+#define K1_THREADS 256
+#endif
+#ifndef K1_CELLS
+#define K1_CELLS 3
+#endif
+constexpr int THREADS = K1_THREADS;   // tools/block_tune.py builds other values
+constexpr int CELLS = K1_CELLS;
 constexpr int CHUNK = 128;
+constexpr int UNROLL = 4;
+
+// log(a) for FLT_MIN <= a < inf
+__device__ __forceinline__ float log_pos(float a) {
+  const int i = __float_as_int(a);
+  const int e = (i - 0x3f2aaaab) & (int)0xff800000;          // a = 2^k m, m in [2/3, 4/3)
+  const float m = __int_as_float(i - e);
+  const float k = __int_as_float((e >> 23) + 0x4b400000) - 12582912.0f;
+  const float f = m - 1.0f;
+  const float s = f * f;
+  float q = 0.14223834872245789f;
+  q = fmaf(q, f, -0.1568501591682434f);
+  q = fmaf(q, f, 0.13950958847999573f);
+  q = fmaf(q, f, -0.16352400183677673f);
+  q = fmaf(q, f, 0.20014333724975586f);
+  q = fmaf(q, f, -0.2501194179058075f);
+  q = fmaf(q, f, 0.33333131670951843f);
+  q = fmaf(q, f, -0.4999985992908478f);
+  return fmaf(k, 0.693147182f, fmaf(q, s, f));
+}
 
 template <int R>
 __global__ void __launch_bounds__(THREADS)
 tps_grid_kernel(const float* __restrict__ kxy, const float* __restrict__ c,
                 const float* __restrict__ d, float* __restrict__ out,
-                int n_pad, int ncols, int n_cells,
+                int n_knots, int nrows, int ncols,
                 float sx0, float sx1, float sy0, float sy1,
                 float xmin, float dx, float ymax, float dy) {
   __shared__ float s_kx[CHUNK];
   __shared__ float s_ky[CHUNK];
   __shared__ float s_c[R][CHUNK];
 
-  const int base = blockIdx.x * (THREADS * CELLS) + threadIdx.x;
-  float px[CELLS], py[CELLS], acc[CELLS][R];
+  const int row = blockIdx.y;
+  const int col0 = blockIdx.x * (THREADS * CELLS) + threadIdx.x;
+  const float py = ((ymax - ((float)row + 0.5f) * dy) - sy0) / sy1;
+  float px[CELLS], acc[CELLS][R];
 #pragma unroll
   for (int q = 0; q < CELLS; ++q) {
-    const int cell = min(base + q * THREADS, n_cells - 1);
-    const int row = cell / ncols;
-    const int col = cell - row * ncols;
-    const float gx = xmin + ((float)col + 0.5f) * dx;
-    const float gy = ymax - ((float)row + 0.5f) * dy;
-    px[q] = (gx - sx0) / sx1;
-    py[q] = (gy - sy0) / sy1;
+    const int col = min(col0 + q * THREADS, ncols - 1);
+    px[q] = ((xmin + ((float)col + 0.5f) * dx) - sx0) / sx1;
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[q][r] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < n_pad; k0 += CHUNK) {
+  for (int k0 = 0; k0 < n_knots; k0 += CHUNK) {
+    const int len = min(CHUNK, n_knots - k0);
     __syncthreads();
-    for (int i = threadIdx.x; i < CHUNK; i += THREADS) {
+    for (int i = threadIdx.x; i < len; i += THREADS) {
       s_kx[i] = kxy[k0 + i];
-      s_ky[i] = kxy[n_pad + k0 + i];
+      s_ky[i] = kxy[n_knots + k0 + i];
 #pragma unroll
-      for (int r = 0; r < R; ++r) s_c[r][i] = c[r * n_pad + k0 + i];
+      for (int r = 0; r < R; ++r) s_c[r][i] = c[r * n_knots + k0 + i];
     }
     __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < CHUNK; ++j) {
-      const float kx = s_kx[j];
-      const float ky = s_ky[j];
+    for (int j0 = 0; j0 < len; j0 += UNROLL) {
 #pragma unroll
-      for (int q = 0; q < CELLS; ++q) {
-        const float ddx = kx - px[q];
-        const float ddy = ky - py[q];
-        const float r2 = ddx * ddx + ddy * ddy;
-        const float phi = r2 * logf(fmaxf(r2, FLT_MIN));
+      for (int j = j0; j < j0 + UNROLL; ++j) {
+        const float ddy = s_ky[j] - py;
+        const float ddy2 = ddy * ddy;
+        const float kx = s_kx[j];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[q][r] += s_c[r][j] * phi;
+        for (int q = 0; q < CELLS; ++q) {
+          const float ddx = kx - px[q];
+          const float r2 = fmaf(ddx, ddx, ddy2);
+          const float phi = r2 * log_pos(fmaxf(r2, FLT_MIN));
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[q][r] = fmaf(s_c[r][j], phi, acc[q][r]);
+        }
       }
     }
   }
 
+  const size_t n_cells = (size_t)nrows * ncols;
 #pragma unroll
   for (int q = 0; q < CELLS; ++q) {
-    const int cell = base + q * THREADS;
-    if (cell < n_cells) {
+    const int col = col0 + q * THREADS;
+    if (col < ncols) {
+      const size_t cell = (size_t)row * ncols + col;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        out[(size_t)r * n_cells + cell] =
-            acc[q][r] + (d[r * 3 + 0] * px[q] + d[r * 3 + 1] * py[q] + d[r * 3 + 2]);
+        out[r * n_cells + cell] = acc[q][r] + (d[r * 3 + 0] * px[q] + d[r * 3 + 1] * py + d[r * 3 + 2]);
       }
     }
   }
@@ -98,27 +135,26 @@ tps_grid_kernel(const float* __restrict__ kxy, const float* __restrict__ c,
 
 template <int R>
 cudaError_t launch(const float* kxy, const float* c, const float* d, float* out,
-                   int n_pad, int nrows, int ncols, const float* g, cudaStream_t stream) {
-  const int n_cells = nrows * ncols;
-  const int per_block = THREADS * CELLS;
-  const int blocks = (n_cells + per_block - 1) / per_block;
+                   int n_knots, int nrows, int ncols, const float* g, cudaStream_t stream) {
+  const dim3 blocks((ncols + THREADS * CELLS - 1) / (THREADS * CELLS), nrows);
   tps_grid_kernel<R><<<blocks, THREADS, 0, stream>>>(
-      kxy, c, d, out, n_pad, ncols, n_cells,
+      kxy, c, d, out, n_knots, nrows, ncols,
       g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7]);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// kxy (2, n_pad), c (n_resp, n_pad), d (n_resp, 3), out (n_resp, nrows, ncols):
-// float32, contiguous, on the device of `stream`.  n_pad is a multiple of
-// 128 and 1 <= n_resp <= 8.  Returns the launch's cudaError_t.
+// kxy (2, n_knots), c (n_resp, n_knots), d (n_resp, 3), out (n_resp, nrows,
+// ncols): float32, contiguous, on the device of `stream`.  n_knots is the
+// live knot count padded with c = 0 to a multiple of 4; 1 <= n_resp <= 8,
+// nrows <= 65535.  Returns the launch's cudaError_t.
 extern "C" int tps_grid_launch(const void* kxy, const void* c, const void* d, void* out,
-                               int n_pad, int n_resp, int nrows, int ncols,
+                               int n_knots, int n_resp, int nrows, int ncols,
                                float sx0, float sx1, float sy0, float sy1,
                                float xmin, float dx, float ymax, float dy,
                                void* stream) {
-  if (n_pad <= 0 || n_pad % CHUNK != 0 || nrows <= 0 || ncols <= 0) {
+  if (n_knots <= 0 || n_knots % UNROLL != 0 || nrows <= 0 || nrows > 65535 || ncols <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const float g[8] = {sx0, sx1, sy0, sy1, xmin, dx, ymax, dy};
@@ -128,14 +164,14 @@ extern "C" int tps_grid_launch(const void* kxy, const void* c, const void* d, vo
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_resp) {
-    case 1: return (int)launch<1>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 2: return (int)launch<2>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 3: return (int)launch<3>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 4: return (int)launch<4>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 5: return (int)launch<5>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 6: return (int)launch<6>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 7: return (int)launch<7>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
-    case 8: return (int)launch<8>(k, cc, dd, o, n_pad, nrows, ncols, g, s);
+    case 1: return (int)launch<1>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 2: return (int)launch<2>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 3: return (int)launch<3>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 4: return (int)launch<4>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 5: return (int)launch<5>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 6: return (int)launch<6>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 7: return (int)launch<7>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
+    case 8: return (int)launch<8>(k, cc, dd, o, n_knots, nrows, ncols, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,10 +19,17 @@ CUDA inputs launch ``csrc/forest_predict.cu``, CPU inputs run the plain
 version, streamed over cell blocks so no (cells x leaves) mask for a whole
 raster ever exists.  ``forest_predict_bins`` does both steps in one call.
 
+The kernel evaluates the same sum in tree order.  ``outcome_tables``
+gives every tree with at most ``S_MAX`` split nodes (when p <= 8) a
+descriptor (each split node's feature and bin threshold k, left iff
+bin <= k) and a table of 2^S rows: row u is the slot of the leaf reached
+by going right at the j-th split node iff bit j of u, or the zero row for
+the tree's dropped leaf.  A cell then costs one table lookup per such
+tree; the other trees' slots keep the membership test.
+
 The JAX package's ``_segments_for`` and ``predicate`` options are
 work-arounds for its TPU compiler (Mosaic) that skip feature tiles a leaf
-chunk never constrains; K3 tests every feature of a slot in a few packed
-integer operations and needs neither, so they are not ported.
+chunk never constrains; K3 needs neither, so they are not ported.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -34,8 +41,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "LeafBinTables", "ForestTables", "build_leaf_bins", "prepare_forest", "predict_prepared",
-    "forest_predict_bins", "forest_predict_plain", "forest_predict_cuda", "LAUNCHES",
+    "LeafBinTables", "ForestTables", "OutcomeTables", "S_MAX", "build_leaf_bins", "outcome_tables",
+    "prepare_forest", "predict_prepared", "forest_predict_bins", "forest_predict_plain", "forest_predict_cuda",
+    "LAUNCHES",
 ]
 
 # kernel launches since the last reset: {"forest_predict": n}
@@ -46,6 +54,9 @@ _FEAT_GRANULE = 8
 _PACK = 4            # features per 32-bit word in the kernel's tables
 _MAX_BINS = 128      # bins must fit in 7 bits (the 8th is the guard bit)
 _MAX_RESP = 4        # responses per launch (the kernel's accumulators)
+S_MAX = 6            # split nodes of a tree evaluated by outcome table (2^S_MAX rows)
+_TAB_FEAT = 8        # features the table loop gathers from: two packed words
+_UNUSED_NODE = 0x80  # threshold byte of a descriptor's unused node: its bit is always 0
 # (cells x slots x features) compares per block of the plain version
 _PLAIN_ELEMS = {"cpu": 1 << 25, "cuda": 1 << 28}
 
@@ -152,14 +163,84 @@ def build_leaf_bins(trees, n_feat: int | None = None, drop_leaf: bool = True) ->
     return LeafBinTables(etab, lo, hi, leaf_tree, leaf_node, p, n_bins, drop_node)
 
 
+class OutcomeTables(NamedTuple):
+    """Host tables of the kernel's two loops (``outcome_tables``)."""
+
+    desc: np.ndarray       # (Tt, 4) int32: byte selectors of split nodes 0-3 and 4-7, then k + 1 bytes
+    row_slot: np.ndarray   # (Tt, 2^S) int64 slot of each outcome row; TL (the zero row) for a dropped leaf
+    loop_slot: np.ndarray  # (Ls,) int64 the real slots of the trees outside the tables
+
+
+def outcome_tables(trees, tables: LeafBinTables, s_max: int = S_MAX) -> OutcomeTables:
+    """Per-tree outcome tables of a forest, built for all trees at once.
+
+    A tree with S <= ``s_max`` split nodes (and p <= 8) gets a descriptor:
+    split node j (the j-th internal node by id) tests feature f_j against
+    bin threshold k_j, as ``build_leaf_bins`` computes it, and goes right
+    iff bin > k_j.  Its rows walk the tree for every pattern u of 2^S bits
+    ("right at node j iff bit j of u"), S the largest split count of the
+    tabled trees; a tree with fewer splits leaves its unused nodes' bits 0.
+    The slots of every other tree stay in ``loop_slot`` for the membership
+    test.  trees: a Tree of (T, N) arrays (numpy or CPU tensors)."""
+    feat = np.asarray(trees.feat).astype(np.int64)
+    thr = np.asarray(trees.thr)
+    int_mask = np.asarray(trees.internal) > 0
+    left = np.asarray(trees.left).astype(np.int64)
+    right = np.asarray(trees.right).astype(np.int64)
+    p, tl = tables.n_feat, tables.leaf_tree.shape[0]
+    n_split = int_mask.sum(1)
+    tabled = n_split <= s_max
+    if p > _TAB_FEAT or tables.n_bins > _MAX_BINS:
+        tabled[:] = False
+    tt = np.flatnonzero(tabled)
+    real = np.flatnonzero(tables.leaf_tree >= 0)
+    loop_slot = real[~tabled[tables.leaf_tree[real]]].astype(np.int64)
+    s = int(n_split[tt].max()) if tt.size else 0
+    # split node j of each tabled tree: its feature and threshold byte k + 1
+    kbin = np.zeros(feat.shape, np.int64)
+    for f in range(p):
+        at = int_mask & (feat == f)
+        kbin[at] = np.searchsorted(np.unique(thr[at]), thr[at])
+    node_ids = np.argsort(~int_mask[tt], axis=1, kind="stable")[:, :2 * _PACK]     # internal nodes first
+    if node_ids.shape[1] < 2 * _PACK:
+        node_ids = np.pad(node_ids, ((0, 0), (0, 2 * _PACK - node_ids.shape[1])))
+    used = np.arange(2 * _PACK)[None, :] < n_split[tt][:, None]                    # (Tt, 8)
+    nfeat = np.where(used, np.take_along_axis(feat[tt], node_ids, 1), 0)
+    kbyte = np.where(used, np.take_along_axis(kbin[tt], node_ids, 1) + 1, _UNUSED_NODE)
+    shifts4, shifts8 = 4 * np.arange(_PACK), 8 * np.arange(_PACK)
+    desc = np.stack([
+        (nfeat[:, :_PACK] << shifts4).sum(1), (nfeat[:, _PACK:] << shifts4).sum(1),
+        (kbyte[:, :_PACK] << shifts8).sum(1), (kbyte[:, _PACK:] << shifts8).sum(1),
+    ], 1).astype(np.uint32).view(np.int32)
+    # walk every tabled tree for every pattern u at once, on flat int32 node
+    # ids (node q of tabled tree i is i * N + q): a split node's rank and
+    # its (left, right) children; a leaf is its own child on both sides
+    it = int_mask[tt]
+    flat = (np.arange(tt.size, dtype=np.int32) * feat.shape[1])[:, None]
+    node = np.arange(feat.shape[1])[None, :]
+    rank = np.where(it, np.cumsum(it, 1) - 1, 0).astype(np.int32).ravel()
+    child = (np.stack([np.where(it, left[tt], node), np.where(it, right[tt], node)], -1)
+             + flat[:, :, None]).astype(np.int32).ravel()
+    u = np.arange(1 << s, dtype=np.int32)[None, :]
+    cur = np.repeat(flat, 1 << s, axis=1)
+    for _ in range(s):
+        cur = child[2 * cur + ((u >> rank[cur]) & 1)]
+    slot_of = np.full(feat.shape, tl, np.int64)
+    slot_of[tables.leaf_tree[real], tables.leaf_node[real]] = real
+    return OutcomeTables(desc, slot_of[tt].ravel()[cur], loop_slot)
+
+
 class ForestTables(NamedTuple):
     """A forest's leaf tables and weighted slot values on one device."""
 
     etab: torch.Tensor     # (p, B_pad) float32 sorted edges, +inf pad
     lo: torch.Tensor       # (p, TL) float32 lower bin bounds (plain version)
     hi: torch.Tensor       # (p, TL) float32 upper bin bounds
-    lo_w: torch.Tensor     # (TL, W) int32: lo packed 4 features a word (kernel)
-    hi_w: torch.Tensor     # (TL, W) int32: hi | 0x80 packed likewise
+    desc: torch.Tensor     # (Tt, 4) int32 outcome-table trees' split nodes (kernel)
+    row_slot: torch.Tensor  # (Tt, 2^S) int64 slot of each outcome row, TL for none
+    loop_slot: torch.Tensor  # (Ls,) int64 slots of the other trees
+    lo_w: torch.Tensor     # (Ls, W) int32: those slots' lo packed 4 features a word
+    hi_w: torch.Tensor     # (Ls, W) int32: hi | 0x80 packed likewise
     wv: torch.Tensor       # (TL, R) float32 weight x (value - dropped value)
     offset: torch.Tensor   # (R,) float32 dropped leaves' weighted values
     single: bool           # weights were (T,)
@@ -177,11 +258,13 @@ def _pack(a: np.ndarray, guard: int, fill: int) -> np.ndarray:
     return np.ascontiguousarray(words.T).view(np.int32)
 
 
-def prepare_forest(trees, weights, tables: LeafBinTables, device) -> ForestTables:
+def prepare_forest(trees, weights, tables: LeafBinTables, device, s_max: int = S_MAX) -> ForestTables:
     """Device tensors for ``predict_prepared``: the tables (float bounds for
-    the plain version, packed bytes for the kernel) and each slot's weighted
-    value relative to its tree's dropped leaf, with the dropped values'
-    weighted sum as a per-response offset.  ``weights`` (T,) or (T, R)."""
+    the plain version; outcome tables for the trees with at most ``s_max``
+    splits and packed bytes for the other trees' slots, for the kernel) and
+    each slot's weighted value relative to its tree's dropped leaf, with the
+    dropped values' weighted sum as a per-response offset.  ``weights`` (T,)
+    or (T, R)."""
     dev = torch.device(device)
     p = tables.n_feat
     w = torch.as_tensor(weights).to(device=dev, dtype=torch.float32)
@@ -202,10 +285,14 @@ def prepare_forest(trees, weights, tables: LeafBinTables, device) -> ForestTable
         offset = torch.zeros((wcols.shape[1],), dtype=torch.float32, device=dev)
     wv = (leaf_val[:, None] * leaf_w).contiguous()
     lo, hi = tables.lo[:p], tables.hi[:p]
-    lo_w = _pack(lo, 0, 0) if tables.n_bins <= _MAX_BINS else np.zeros((lo.shape[1], 1), np.int32)
-    hi_w = _pack(hi, 0x80, 0xFF) if tables.n_bins <= _MAX_BINS else np.zeros((lo.shape[1], 1), np.int32)
+    ot = outcome_tables(_host_tree(trees), tables, s_max)
+    if tables.n_bins <= _MAX_BINS:
+        lo_w, hi_w = _pack(lo[:, ot.loop_slot], 0, 0), _pack(hi[:, ot.loop_slot], 0x80, 0xFF)
+    else:
+        lo_w = hi_w = np.zeros((0, 1), np.int32)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return ForestTables(t(tables.etab[:p]), t(lo), t(hi), t(lo_w), t(hi_w), wv, offset, single)
+    return ForestTables(t(tables.etab[:p]), t(lo), t(hi), t(ot.desc), t(ot.row_slot), t(ot.loop_slot),
+                        t(lo_w), t(hi_w), wv, offset, single)
 
 
 def forest_predict_plain(ft: ForestTables, x) -> torch.Tensor:
@@ -233,8 +320,9 @@ def _launcher():
     fn = lib.forest_predict_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6                       # x, etab, lo_w, hi_w, wv, out
-        + [ctypes.c_int] * 6                        # m, p, n_edges_pad, n_slots, n_words, n_resp
+        [ctypes.c_void_p] * 8                       # x, etab, desc, vtab, lo_w, hi_w, wv_loop, out
+        + [ctypes.c_int] * 8                        # m, p, n_edges_pad, n_tab, tab_log2_rows, n_slots,
+                                                    # n_words, n_resp
         + [ctypes.c_void_p]                         # stream
     )
     return fn
@@ -242,9 +330,11 @@ def _launcher():
 
 def forest_predict_cuda(ft: ForestTables, x) -> torch.Tensor:
     """Launch K3 on the current stream: (m, R) float32 without the offset.
-    ``x`` (m, >= p) float32 on the tables' CUDA device.  Raises on a wrong
-    device, dtype or shape, on more than 127 edges per feature, and on a
-    launch error."""
+    ``x`` (m, >= p) float32 on the tables' CUDA device.  The outcome rows
+    and the loop slots' values are gathered from ``ft.wv`` at each launch,
+    so the kernel sums exactly the slot formulation's terms.  Raises on a
+    wrong device, dtype or shape, on more than 127 edges per feature, and on
+    a launch error."""
     dev = ft.wv.device
     if x.device != dev or dev.type != "cuda":
         raise ValueError(f"forest_predict_cuda: x must be on {dev}, got {x.device}")
@@ -253,9 +343,12 @@ def forest_predict_cuda(ft: ForestTables, x) -> torch.Tensor:
     p, b_pad = ft.etab.shape
     if b_pad > _MAX_BINS or int(torch.isfinite(ft.etab).sum(1).max()) >= _MAX_BINS:
         raise ValueError(f"forest_predict_cuda: at most {_MAX_BINS - 1} edges per feature")
+    n_tab, rows = ft.row_slot.shape
+    if n_tab and (p > _TAB_FEAT or rows > 1 << S_MAX or rows & (rows - 1)):
+        raise ValueError(f"forest_predict_cuda: outcome tables of {rows} rows for {p} features")
     x = x[:, :p].contiguous()
     m = x.shape[0]
-    tl, n_words = ft.lo_w.shape
+    n_slots, n_words = ft.lo_w.shape
     n_resp = ft.wv.shape[1]
     out = torch.empty((m, n_resp), dtype=torch.float32, device=dev)
     if m == 0:
@@ -266,10 +359,13 @@ def forest_predict_cuda(ft: ForestTables, x) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     for r0 in range(0, n_resp, _MAX_RESP):
         r1 = min(r0 + _MAX_RESP, n_resp)
-        wv = ft.wv[:, r0:r1].contiguous()
+        wv_ext = torch.cat([ft.wv[:, r0:r1], torch.zeros((1, r1 - r0), device=dev)])   # row TL: zeros
+        vtab = wv_ext[ft.row_slot].contiguous()                                     # (Tt, 2^S, r)
+        wl = wv_ext[ft.loop_slot].contiguous()                                      # (Ls, r)
         o = out if (r0, r1) == (0, n_resp) else torch.empty((m, r1 - r0), dtype=torch.float32, device=dev)
-        err = fn(x.data_ptr(), ft.etab.data_ptr(), ft.lo_w.data_ptr(), ft.hi_w.data_ptr(), wv.data_ptr(),
-                 o.data_ptr(), m, p, b_pad, tl, n_words, r1 - r0, stream)
+        err = fn(x.data_ptr(), ft.etab.data_ptr(), ft.desc.data_ptr(), vtab.data_ptr(), ft.lo_w.data_ptr(),
+                 ft.hi_w.data_ptr(), wl.data_ptr(), o.data_ptr(), m, p, b_pad, n_tab, rows.bit_length() - 1,
+                 n_slots, n_words, r1 - r0, stream)
         if err != 0:
             raise RuntimeError(f"forest_predict kernel launch failed: CUDA error {err}")
         LAUNCHES["forest_predict"] += 1

@@ -4,7 +4,10 @@ Counterpart of ``machisplin_tpu/ops/pallas_tps.py``.  Both versions evaluate
 a fitted spline at every cell centre of a grid from the same tables, which
 ``grid_tables`` builds as ``_compiled_grid_eval`` does on the host:
 
-* knots padded to a multiple of the knot chunk with coordinate 0.5 and c = 0;
+* only the live knots: a knot whose c is 0 in every response (a knot
+  budget's padding, ``parallel/tiles.pack_tiles``) adds nothing and is left
+  out; the rest are padded to a multiple of the kernel's unroll width (4)
+  with coordinate 0.5 and c = 0;
 * phi's 1/2 folded into c, so the inner loop computes r2 * log(max(r2, tiny));
 * ``d`` reordered from [1, x, y] to [x, y, 1];
 * the coordinate shift/scale and the grid affine as eight scalars.
@@ -24,7 +27,7 @@ from ..grid import GridSpec
 
 __all__ = ["GridTables", "grid_tables", "tps_grid", "tps_grid_cuda", "tps_grid_plain", "LAUNCHES"]
 
-_KNOT_CHUNK = 128  # the kernel's CHUNK: knots staged per shared-memory pass
+_KNOT_UNROLL = 4  # the kernel's inner unroll: knots are padded to a multiple of it
 _MAX_RESP = 8  # responses per launch (the kernel's register accumulators)
 
 # kernel launches since the last reset: {"tps_grid": n}
@@ -36,7 +39,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 class GridTables(NamedTuple):
-    kxy: torch.Tensor   # (2, n_pad) scaled knot x and y, padding at 0.5
+    kxy: torch.Tensor   # (2, n_pad) scaled x and y of the live knots, padding at 0.5
     c: torch.Tensor     # (R, n_pad) 0.5 * radial coefficients, 0 at padding
     d: torch.Tensor     # (R, 3) polynomial coefficients ordered [x, y, 1]
     geo: tuple          # (sx0, sx1, sy0, sy1, xmin, dx, ymax, dy) floats
@@ -45,20 +48,21 @@ class GridTables(NamedTuple):
 
 def grid_tables(model, grid: GridSpec, dtype=None) -> GridTables:
     """Kernel tables for a TPSModel on ``grid``, in ``dtype`` (default: the
-    model's).  The eight geometry scalars are rounded to ``dtype`` too, as
+    model's), holding its live knots only.  The eight geometry scalars are rounded to ``dtype`` too, as
     the JAX kernel receives them in float32."""
     dtype = dtype or model.c.dtype
     c = model.c
     single = c.ndim == 1
     ccols = (c[:, None] if single else c).to(dtype)
     dcols = (model.d[:, None] if single else model.d).to(dtype)
-    n = ccols.shape[0]
-    n_pad = _round_up(n, _KNOT_CHUNK)
+    live = torch.nonzero((ccols != 0).any(1)).flatten()
+    n = live.numel()
+    n_pad = _round_up(max(n, 1), _KNOT_UNROLL)
     dev = c.device
     kxy = torch.full((2, n_pad), 0.5, dtype=dtype, device=dev)
-    kxy[:, :n] = model.knots.to(dtype).T
+    kxy[:, :n] = model.knots[live].to(dtype).T
     ct = torch.zeros((ccols.shape[1], n_pad), dtype=dtype, device=dev)
-    ct[:, :n] = 0.5 * ccols.T
+    ct[:, :n] = 0.5 * ccols[live].T
     dt = torch.cat([dcols[1:3], dcols[0:1]], dim=0).T.contiguous()
     raw = torch.cat([
         torch.stack([model.shift[0], model.scale[0], model.shift[1], model.scale[1]]).to(dtype),
@@ -121,12 +125,12 @@ def tps_grid_cuda(tab: GridTables, grid: GridSpec) -> torch.Tensor:
         if not a.is_contiguous():
             raise ValueError(f"tps_grid_cuda: {name} must be contiguous")
     n_resp, n_pad = c.shape
-    if kxy.shape != (2, n_pad) or d.shape != (n_resp, 3) or n_pad % _KNOT_CHUNK:
+    if kxy.shape != (2, n_pad) or d.shape != (n_resp, 3) or n_pad % _KNOT_UNROLL:
         raise ValueError(
             f"tps_grid_cuda: bad table shapes kxy {tuple(kxy.shape)} c {tuple(c.shape)} d {tuple(d.shape)}"
         )
-    if grid.nrows * grid.ncols >= 2**31:
-        raise ValueError("tps_grid_cuda: grid too large for 32-bit cell indices")
+    if grid.nrows > 65535 or grid.ncols >= 2**31:
+        raise ValueError("tps_grid_cuda: at most 65535 rows (one block row each) and 2^31 - 1 columns")
     fn = _launcher()
     out = torch.empty((n_resp, grid.nrows, grid.ncols), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

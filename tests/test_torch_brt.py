@@ -28,6 +28,7 @@ from machisplin_tpu_torch.ensemble.cv import CVConfig as TCVConfig
 from machisplin_tpu_torch.models import brt as tbrt, gbm_step as tgbm, trees as ttrees
 from machisplin_tpu_torch.ops import forest as tforest, tree_grow as ttg
 from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig as TConfig
+from test_torch_forest_tables import outcome_mirror
 
 NB = 16
 
@@ -329,6 +330,26 @@ def test_forest_predict_bins_matches_jax(multi_runs, n_cols):
         jpred = np.asarray(jbrt.predict(st, jnp.asarray(q)))
         np.testing.assert_allclose(tbrt.predict(tstate, torch.as_tensor(q)).numpy(), jpred, rtol=0,
                                    atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n_cols", [None, 2], ids=["weights_T", "weights_TR"])
+def test_outcome_tables_match_jax(multi_runs, n_cols):
+    """K3's evaluation through outcome tables (the kernel's arithmetic,
+    mirrored in torch by ``outcome_mirror``) on a JAX-grown forest against
+    the JAX package's plain ``forest_predict_bins``; 1e-5 of sum |w v|."""
+    st = _jax_state(multi_runs)
+    rng = np.random.default_rng(8)
+    q = rng.uniform(-0.1, 1.1, (2000, 3)).astype(np.float32)
+    w = np.asarray(st.tree_active) * np.asarray(st.lr)
+    if n_cols:
+        w = np.stack([w, rng.uniform(size=w.shape[0]) * w], 1).astype(np.float32)
+    want = np.asarray(jforest.forest_predict_bins(st.trees, jnp.asarray(q), jnp.asarray(w), use_pallas=False))
+    trees = convert.brt_state_from_numpy(st, device="cpu").trees
+    ft = tforest.prepare_forest(trees, torch.as_tensor(w), tforest.build_leaf_bins(trees, n_feat=3), "cpu")
+    assert ft.desc.shape[0] == trees.feat.shape[0] and ft.loop_slot.numel() == 0
+    got = (outcome_mirror(ft, torch.as_tensor(q)) + ft.offset).numpy()
+    scale = float(np.abs(w).sum(0).max() * np.abs(np.asarray(st.trees.value)).max())
+    np.testing.assert_allclose(got.reshape(want.shape), want, rtol=0, atol=1e-5 * scale)
 
 
 def test_predict_prepared_never_moves_cells():

@@ -14,6 +14,7 @@ import torch
 from machisplin_tpu_torch import grid as tgrid
 from machisplin_tpu_torch.models import trees as ttrees
 from machisplin_tpu_torch.ops import forest as ttforest, tps as ttps, tps_grid as ttg, tree_grow as ttgrow
+from test_torch_forest_tables import random_forest
 
 pytestmark = pytest.mark.gpu
 
@@ -52,6 +53,30 @@ def test_k1_matches_plain(cuda, n_knots, n_resp, shape):
     assert float((got - want).abs().max()) <= 2e-4 * scale
     out = ttps.tps_predict_grid(model, g)
     assert out.shape == (shape if n_resp == 1 else shape + (n_resp,))
+
+
+@pytest.mark.parametrize("live", [37, 50])
+def test_k1_skips_a_knot_budgets_padding(cuda, live):
+    """A tile packed to a 64-knot budget: K1 evaluates its live knots only
+    (padded to the unroll width 4) and agrees with the plain version, and
+    with the plain version of every budget knot, to 2e-4 of max|surface|."""
+    from machisplin_tpu_torch.parallel import tiles as ttiles
+
+    rng = np.random.default_rng(live)
+    pts = [rng.uniform(-3, 2, size=(live, 2)), rng.uniform(-3, 2, size=(64, 2))]
+    ys = [np.stack([np.sin(2 * p[:, 0]) * np.cos(p[:, 1]), p[:, 0] ** 2], 1) for p in pts]
+    ct, yt, mt = ttiles.pack_tiles(pts, ys, pad_to=64, dtype=torch.float64, device=cuda)
+    model = ttps.TPSModel(*(a[0] for a in ttiles.batched_tile_solve(ct, yt, mt)))
+    g = tgrid.GridSpec(nrows=97, ncols=613, xmin=-3.1, ymax=2.2, dx=5.3 / 613, dy=5.4 / 97)
+    tab = ttg.grid_tables(model, g, torch.float32)
+    assert tab.c.shape == (2, -(-live // 4) * 4)
+    got = ttg.tps_grid_cuda(tab, g)
+    torch.cuda.synchronize()
+    want = ttg.tps_grid_plain(tab, g)
+    every = tab._replace(kxy=model.knots.T.float().contiguous(), c=(0.5 * model.c.T).float().contiguous())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-4 * scale
+    assert float((got - ttg.tps_grid_plain(every, g)).abs().max()) <= 2e-4 * scale
 
 
 def test_k1_wrapper_checks_inputs(cuda):
@@ -176,24 +201,42 @@ def test_k2_wrapper_checks_inputs(cuda):
     assert ttgrow.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n_cols", [None, 2, 5])
-def test_k3_matches_plain(cuda, n_cols):
-    """Exact leaf membership counts, weighted sums to 1e-5 of sum |w v|."""
-    xb, ys, fs, ws = _k2_inputs(2, 400, 5, 64, cuda, seed=1)
-    kw = dict(n_splits=5, nb=64, min_leaf=10.0, lr=1.0, emit_tree=True)
-    cyc = ttgrow.gbm_tree_cycle(ttgrow.prepare_bins(xb, 64), ys, fs, ws.expand(30, *ws.shape).contiguous(),
-                                scale=torch.full((30, ws.shape[0]), 0.1, device=cuda), **kw)
-    stack = [a.reshape(-1, a.shape[-1]).cpu() for a in cyc.trees]
-    edges = ttrees.make_bins(torch.rand(400, 5, dtype=torch.float64), 64)
-    tree = ttrees.Tree(feat=stack[0].long(), thr=ttrees.edges_lookup(edges, stack[0], stack[1]).float(),
-                       internal=stack[2], left=stack[3].long(), right=stack[4].long(), value=stack[5],
-                       var_gain=stack[6])
+def _k3_forest(kind, cuda):
+    """(tree, p, depth): "k2" 30 x 2 trees of 5 splits grown by K2 (all
+    tabled); "deep" random trees of 0-9 splits, those above S_MAX in the
+    slot loop; "wide" p = 10, every tree in the slot loop."""
+    if kind == "k2":
+        xb, ys, fs, ws = _k2_inputs(2, 400, 5, 64, cuda, seed=1)
+        kw = dict(n_splits=5, nb=64, min_leaf=10.0, lr=1.0, emit_tree=True)
+        cyc = ttgrow.gbm_tree_cycle(ttgrow.prepare_bins(xb, 64), ys, fs, ws.expand(30, *ws.shape).contiguous(),
+                                    scale=torch.full((30, ws.shape[0]), 0.1, device=cuda), **kw)
+        stack = [a.reshape(-1, a.shape[-1]).cpu() for a in cyc.trees]
+        edges = ttrees.make_bins(torch.rand(400, 5, dtype=torch.float64), 64)
+        tree = ttrees.Tree(feat=stack[0].long(), thr=ttrees.edges_lookup(edges, stack[0], stack[1]).float(),
+                           internal=stack[2], left=stack[3].long(), right=stack[4].long(), value=stack[5],
+                           var_gain=stack[6])
+        return tree, 5, 5
+    rng = np.random.default_rng(3)
+    if kind == "deep":
+        return random_forest(rng, list(rng.integers(0, 10, 300)), p=6, n_edges=100)[0], 6, 9
+    return random_forest(rng, list(rng.integers(1, 6, 200)), p=10, n_edges=60)[0], 10, 5
+
+
+@pytest.mark.parametrize("kind,n_cols", [("k2", None), ("k2", 2), ("k2", 5), ("deep", 2), ("wide", None)])
+def test_k3_matches_plain(cuda, kind, n_cols):
+    """Exact leaf membership counts, weighted sums to 1e-5 of sum |w v|,
+    with every tree tabled, trees above S_MAX in the slot loop of the same
+    launch, and a p > 8 stack in the slot loop alone."""
+    tree, p, depth = _k3_forest(kind, cuda)
     n_t = tree.feat.shape[0]
     rng = np.random.default_rng(2)
     w = rng.uniform(size=n_t) if n_cols is None else rng.uniform(size=(n_t, n_cols))
-    tabs = ttforest.build_leaf_bins(tree, n_feat=5)
-    x = torch.rand((70_001, 5), dtype=torch.float32, device=cuda) * 1.2 - 0.1
+    tabs = ttforest.build_leaf_bins(tree, n_feat=p)
+    x = torch.rand((70_001, p), dtype=torch.float32, device=cuda) * 1.2 - 0.1
     ft = ttforest.prepare_forest(tree, torch.as_tensor(w), tabs, cuda)
+    deep = (tree.internal.sum(1) > ttforest.S_MAX) | (p > 8)
+    assert ft.desc.shape[0] == int((~deep).sum())
+    assert ft.loop_slot.numel() == int(np.isin(tabs.leaf_tree, np.flatnonzero(deep.numpy())).sum())
     before = ttforest.LAUNCHES["forest_predict"]
     got = ttforest.forest_predict_cuda(ft, x)
     torch.cuda.synchronize()
@@ -204,7 +247,7 @@ def test_k3_matches_plain(cuda, n_cols):
     ones = ft._replace(wv=torch.ones_like(ft.wv[:, :1]), offset=ft.offset[:1])
     torch.testing.assert_close(ttforest.forest_predict_cuda(ones, x), ttforest.forest_predict_plain(ones, x),
                                rtol=0, atol=0)
-    routed = ttrees.forest_predict(ttrees.Tree(*(a.to(cuda) for a in tree)), x[:2000], 5,
+    routed = ttrees.forest_predict(ttrees.Tree(*(a.to(cuda) for a in tree)), x[:2000], depth,
                                    weights=torch.as_tensor(w if n_cols is None else w[:, 0], device=cuda).float())
     full = ttforest.predict_prepared(ft, x[:2000])
     full = full if n_cols is None else full[:, 0]

@@ -84,18 +84,82 @@ def test_plain_grid_matches_pallas_interpret(rng, n_resp):
 
 
 def test_grid_tables_match_jax_setup(rng):
-    """Padding to the knot chunk with 0.5 / c = 0, the 1/2 folded into c and
-    d reordered [1, x, y] -> [x, y, 1], as _compiled_grid_eval builds them."""
+    """Padding to the kernel's unroll width (4) with 0.5 / c = 0, the 1/2
+    folded into c and d reordered [1, x, y] -> [x, y, 1], as
+    _compiled_grid_eval builds them."""
     pts = rng.uniform(0, 1, size=(130, 2))
     y = np.stack([np.sin(4 * pts[:, 0]), pts[:, 1] ** 2], 1)
     model = ttps.tps_fit(torch.as_tensor(pts), torch.as_tensor(y), lam=1e-4)
     tab = ttg.grid_tables(model, tgrid.GridSpec(3, 4, 0.0, 1.0, 0.25, 1 / 3), torch.float32)
-    assert tab.kxy.shape == (2, 256) and tab.c.shape == (2, 256)
+    assert tab.kxy.shape == (2, 132) and tab.c.shape == (2, 132)
     np.testing.assert_array_equal(tab.kxy[:, 130:].numpy(), 0.5)
     np.testing.assert_array_equal(tab.c[:, 130:].numpy(), 0.0)
     np.testing.assert_allclose(tab.c[:, :130].numpy(), 0.5 * model.c.T.float().numpy(), rtol=1e-7)
     np.testing.assert_allclose(tab.d.numpy(), model.d[[1, 2, 0]].T.float().numpy(), rtol=1e-7)
     assert not tab.single
+
+
+@pytest.mark.parametrize("live", [37, 50, 64])
+def test_plain_grid_of_a_budget_tile_matches_pallas_interpret(rng, live):
+    """A tile packed to a 64-knot budget: the tables keep its live knots
+    only (padded to the unroll width), and the plain version matches the
+    JAX package's Pallas kernel (interpret mode) on the whole padded model."""
+    pts = rng.uniform(0, 1, size=(live, 2)).astype(np.float32)
+    ys = np.stack([np.sin(3 * pts[:, 0]) + np.cos(2 * pts[:, 1]), pts[:, 0] * pts[:, 1]], 1).astype(np.float32)
+    other = rng.uniform(0, 1, size=(64, 2)).astype(np.float32)
+    jc, jy, jm = jsharded.pack_tiles([pts, other], [ys, np.sin(other)], pad_to=64)
+    jmodel = jtps.TPSModel(*(a[0] for a in jsharded.batched_tile_solve(jc, jy, jm)))
+    jgrid = JGridSpec(nrows=30, ncols=44, xmin=0.0, ymax=1.0, dx=1 / 44, dy=1 / 30)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(tps_grid_pallas(jmodel, jgrid))
+    model = convert.tps_model_from_numpy(_fields(jmodel), dtype=torch.float32, device="cpu")
+    assert bool((model.c[live:] == 0).all())
+    g = tgrid.GridSpec(nrows=30, ncols=44, xmin=0.0, ymax=1.0, dx=1 / 44, dy=1 / 30)
+    tab = ttg.grid_tables(model, g, torch.float32)
+    assert tab.c.shape == (2, -(-live // 4) * 4)
+    np.testing.assert_array_equal(tab.kxy[:, :live].numpy(), model.knots[:live].T.numpy())
+    got = ttps.tps_predict_grid(model, g, block_rows=7).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_k1_log_within_two_ulp():
+    """K1's log (``log_pos`` in csrc/tps_grid.cu: exponent from the bits,
+    m in [2/3, 4/3), degree-7 polynomial), emulated in float32 with its
+    constants read from the source, is within 2 ulp of the float64 log on
+    every float32 m of [2/3, 4/3) and on 2^20 arguments drawn over
+    [FLT_MIN, 8] (each fma rounded once, from a float64 product and sum)."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(ttg.__file__), "..", "csrc", "tps_grid.cu")).read()
+    body = src[src.index("float log_pos(float a)"):]
+    body = body[: body.index("\n}")]
+    coef = [np.float32(v) for v in re.findall(r"q = (?:fmaf\(q, f, )?(-?[0-9.]+)f", body)]
+    assert len(coef) == 8 and "0x3f2aaaab" in body and "0.693147182f" in body
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b.astype(np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+    def log_pos(a):
+        i = a.view(np.int32)
+        e = (i - np.int32(0x3F2AAAAB)) & np.int32(-(1 << 23))
+        m = (i - e).view(np.float32)
+        k = ((e >> 23) + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+        f = m - np.float32(1.0)
+        q = np.full_like(f, coef[0])
+        for c in coef[1:]:
+            q = fma(q, f, c)
+        return fma(k, np.full_like(f, np.float32(0.693147182)), fma(q, f * f, f))
+
+    lo, hi = np.float32(2 / 3).view(np.int32), np.float32(4 / 3).view(np.int32)
+    core = np.arange(lo, hi, dtype=np.int32).view(np.float32)
+    wide = np.random.default_rng(0).integers(np.float32(1.1754944e-38).view(np.int32), np.float32(8).view(np.int32),
+                                             1 << 20).astype(np.int32).view(np.float32)
+    for a in (core, wide):
+        want = np.log(a.astype(np.float64))
+        ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+        assert float((np.abs(log_pos(a) - want) / ulp).max()) <= 2.0
 
 
 def test_grid_plain_matches_pointwise_predict(rng):
