@@ -43,6 +43,22 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   bound from the path compares and adds these cells need, which must not
   exceed the kernel's time; the 6-split trees timed tabled and slot-tested
   (the measurement behind ``ops/forest.S_MAX``).
+* ``nn_lbfgs``: the NN letter's L-BFGS (``optim/lbfgs.py``, the port's
+  copy of optax's ``lbfgs(memory_size=20)`` and zoom line search) at the CV
+  shape (20 lanes x 813 stations, p = 5, h = 10): float64 steps from the
+  same seeded inits on the card and on the CPU, predictions within
+  NN_TOL_EARLY of the response range after 10 steps and NN_TOL after 50;
+  then 200 float32 steps timed (ms a step and a pass, passes and
+  line-search evaluations a step, host syncs a step, kernel launches a
+  step and a pass from ``torch.profiler``, eager and through the CUDA
+  graph);
+* ``mltps_bn``: the pool the reference keeps, ``mltps(...,
+  config=MLTPSConfig(letters_pool="bn"))`` on the full grid (float32):
+  K1 = 6, K2 and K3 > 0 launches, finite surfaces, the kept letters as the
+  JAX package's wherever all its recorded keys agree, each r² within
+  max(0.01, 3 x the JAX package's spread over keys) of their mean
+  (``tools/record_jax_bn_r2.py``), the CV's seconds per letter, the NN
+  finals and raster pass, and peak device memory.
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -99,6 +115,32 @@ K2_CYCLE = 50   # trees per K2 launch on the BRT path: gbm.step's step_size
 # another order (n eps ~ 5e-5), and f within K2_TOL
 K2_DEV_RTOL = 1e-4
 K3_TOL = 1e-5   # of sum |w v| per response
+
+# The JAX package's values for mltps over the BRT + NN pool ("bn"; covariates
+# as built, float32; folds from numpy_folds(813, 10, 2, seed=0)), PRNG keys
+# 0-3, from `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_bn_r2.py
+# --keys 0,1,2,3 1` (CPU, 621-765 s a key on an 8-core CPU).  The NN inits
+# and the BRT bags are threefry draws there and torch draws here, so each r²
+# is held to the keys' mean within max(R2_TOL_B, 3 x their spread): 0.01,
+# except bio_12's r² final (spread 0.0048, band 0.0144).  Every key keeps "bn".
+JAX_REFERENCE_BN = {
+    "bio_1": {"kept": ["bn", "bn", "bn", "bn"],
+              "r2_ensemble": [0.9377469242168024, 0.9384933971351264, 0.9379402536395949, 0.9369282534719621],
+              "r2_final": [0.9961758347269227, 0.9952700305942918, 0.9949255486601413, 0.9955741609029347]},
+    "bio_12": {"kept": ["bn", "bn", "bn", "bn"],
+               "r2_ensemble": [0.864729689245973, 0.866564214101987, 0.864604333349729, 0.8668480478917979],
+               "r2_final": [0.9352715248713949, 0.9332426796888509, 0.9380290753875588, 0.9343755069879693]},
+}
+# The NN's L-BFGS, card against CPU in float64 at the CV shape, of the
+# responses' range.  After 50 steps the two part by 5.8e-7 of the range (H100
+# run): the same arithmetic in another summation order (cuBLAS against the
+# CPU's reductions), amplified by the training itself, which multiplies a
+# relative perturbation of 1e-15 in the inits into 2.3e-8 after 50 steps and
+# 1.2e-13 after 10 (CPU, float64, these lanes).  So the 50-step check holds
+# to 1e-5 (1e-7 widened, for that cause), and a 10-step check, before the
+# amplification, holds the step sequence to 1e-9.
+NN_TOL, NN_TOL_EARLY = 1e-5, 1e-9
+NN_STEPS_CHECK, NN_STEPS_EARLY, NN_STEPS_TIMED = 50, 10, 200
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_OPS = 67e12
@@ -813,6 +855,177 @@ def phase_kernel_k3(captured: dict):
     return res
 
 
+def nn_cv_inputs(stations, dtype: str, device: str):
+    """The NN letter's CV inputs at the main path's shape from ``stations``
+    (``_stations()``): the covariates, the 20 (response x fold) lanes'
+    [0, 1] responses and train masks (folds from numpy_folds(n, 10, 2,
+    seed=0)), seeded inits, the lanes' de-scaling and the responses' range."""
+    import torch
+
+    from machisplin_tpu_torch.ensemble.cv import _nn_y_transform
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import nn
+
+    x_np, ys = stations
+    n, p = x_np.shape
+    dt = getattr(torch, dtype)
+    x = torch.as_tensor(x_np, dtype=dt, device=device)
+    folds = torch.as_tensor(numpy_folds(n, 10, 2, seed=0), device=device)
+    w = (folds[:, None, :] != torch.arange(10, device=device)[None, :, None]).to(dt).reshape(20, n)
+    y = torch.as_tensor(ys.T, dtype=dt, device=device).repeat_interleave(10, dim=0)
+    yn, y_min, y_max = _nn_y_transform(y, w)
+    init = nn.draw_init(20, p, 10, generator=torch.Generator().manual_seed(8), dtype=dt, device=device)
+    return x, yn, w, init, y_min, y_max, float(ys.max() - ys.min())
+
+
+def _cuda_kernels(prof):
+    """Kernels a profile saw on the card: (count, their summed time, the span
+    from the first one's start to the last one's end), in µs."""
+    import torch
+
+    ks = [e.time_range for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    if not ks:
+        return 0, 0.0, 0.0
+    return len(ks), float(sum(k.elapsed_us() for k in ks)), float(max(k.end for k in ks) - min(k.start for k in ks))
+
+
+def phase_nn_lbfgs():
+    """The NN letter's L-BFGS at the CV shape: card against CPU in float64,
+    then float32 steps timed, with kernel launches from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from machisplin_tpu_torch.models import nn
+
+    t0 = time.perf_counter()
+    stations = _stations()
+    preds, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        x, yn, w, init, y_min, y_max, resp_range = nn_cv_inputs(stations, "float64", dev)
+        stats[dev] = {}
+        t1 = time.perf_counter()
+        carry = nn.fit_carry_init(x, yn, sample_weight=w, hidden=10, init=init)
+        for steps in (NN_STEPS_EARLY, NN_STEPS_CHECK - NN_STEPS_EARLY):
+            carry = nn.fit_carry_steps(carry, x, yn, sample_weight=w, steps=steps, stats=stats[dev])
+            pred = nn.predict(nn.carry_to_state(carry), x) * y_max[:, None] + y_min[:, None]
+            preds[dev, steps] = pred.cpu()
+        stats[dev]["seconds"] = time.perf_counter() - t1
+    err_early = float((preds["cuda", NN_STEPS_EARLY] - preds["cpu", NN_STEPS_EARLY]).abs().max())
+    err = float((preds["cuda", NN_STEPS_CHECK - NN_STEPS_EARLY] - preds["cpu", NN_STEPS_CHECK - NN_STEPS_EARLY])
+                .abs().max())
+
+    x, yn, w, init, _, _, _ = nn_cv_inputs(stations, "float32", "cuda")
+    carry = nn.fit_carry_init(x, yn, sample_weight=w, hidden=10, init=init)
+    carry = nn.fit_carry_steps(carry, x, yn, sample_weight=w, steps=10)     # warm-up
+    timed = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nn.fit_carry_steps(carry, x, yn, sample_weight=w, steps=NN_STEPS_TIMED, stats=timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    lane_steps = timed["steps"]
+    ms_step = (wall - timed["capture_s"]) * 1e3 / NN_STEPS_TIMED
+    # kernel launches: 20 steps eager, 100 through the graph (whose count
+    # includes the one eager warm-up pass of its capture)
+    launches = {}
+    for mode, graph, steps in (("eager", False, 20), ("graph", True, 100)):
+        prof_stats = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            nn.fit_carry_steps(carry, x, yn, sample_weight=w, steps=steps, graph=graph, stats=prof_stats)
+            torch.cuda.synchronize()
+        k, busy_us, span_us = _cuda_kernels(prof)
+        launches[mode] = {"steps": steps, "kernels": k, "passes": prof_stats["passes"], "kernels_per_step": k / steps,
+                          "kernels_per_pass": k / max(prof_stats["passes"], 1),
+                          "kernel_us_mean": busy_us / max(k, 1),
+                          "device_busy_share": busy_us / span_us if span_us else None}
+    res = {
+        "phase": "nn_lbfgs", "seconds": time.perf_counter() - t0, "lanes": 20, "stations": int(x.shape[0]),
+        "features": int(x.shape[1]), "hidden": 10, "check_steps": NN_STEPS_CHECK, "check_stats": stats,
+        "max_abs_err": err, "response_range": resp_range, "tol": NN_TOL * resp_range,
+        "early_steps": NN_STEPS_EARLY, "max_abs_err_early": err_early, "tol_early": NN_TOL_EARLY * resp_range,
+        "timed_steps": NN_STEPS_TIMED, "dtype_timed": "float32", "wall_s": wall, "capture_s": timed["capture_s"],
+        "ms_per_step": ms_step, "passes_per_step": timed["passes"] / NN_STEPS_TIMED,
+        "ms_per_pass": (wall - timed["capture_s"]) * 1e3 / timed["passes"],
+        "evaluations_per_lane_step": timed["evaluations"] / lane_steps,
+        "syncs_per_step": timed["syncs"] / NN_STEPS_TIMED, "launches": launches,
+    }
+    emit(res)
+    if not err_early <= NN_TOL_EARLY * resp_range:
+        raise RuntimeError(f"the NN's L-BFGS on the card parts from the CPU's after {NN_STEPS_EARLY} steps: "
+                           f"{err_early} > {NN_TOL_EARLY} * {resp_range}")
+    if not err <= NN_TOL * resp_range:
+        raise RuntimeError(f"the NN's L-BFGS on the card parts from the CPU's: {err} > {NN_TOL} * {resp_range}")
+    return res
+
+
+def _bn_band(name: str, key: str):
+    """(mean, tolerance) of the JAX package's values of ``key`` over its keys."""
+    vals = JAX_REFERENCE_BN[name][key]
+    spread = max(vals) - min(vals)
+    return sum(vals) / len(vals), max(R2_TOL_B, 3 * spread)
+
+
+def phase_mltps_bn():
+    """The pool the reference keeps: mltps over BRT + NN at full size, float32."""
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 2, seed=0)
+    t_setup = time.perf_counter() - t0
+
+    timer = mtt.PhaseTimer()
+    _reset_launches()
+    t1 = time.perf_counter()
+    out = mtt.mltps(s, cov, tps=True, config=MLTPSConfig(letters_pool="bn"), folds=folds,
+                    generator=torch.Generator().manual_seed(0), device="cuda", timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _read_launches()
+
+    mask = torch.isfinite(cov.data).all(0)
+    layers, failures = {}, []
+    for r in out:
+        for attr in ("final", "ensemble", "tps_surface"):
+            d = getattr(r, attr).data
+            if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
+                failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
+        got = {"kept": r.summary["best model(s):"], "percent": r.summary["ensemble weights:"],
+               "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"]}
+        layers[r.name] = got
+        kept_jax = set(JAX_REFERENCE_BN[r.name]["kept"])
+        if len(kept_jax) == 1 and got["kept"] not in kept_jax:
+            failures.append(f"{r.name} kept {got['kept']!r}, every JAX key keeps {kept_jax.pop()!r}")
+        for key in ("r2_ensemble", "r2_final"):
+            mean, tol = _bn_band(r.name, key)
+            got[key + "_band"] = [mean, tol]
+            if not abs(got[key] - mean) <= tol:
+                failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {mean} +- {tol}")
+    phases = timer.as_dict()
+    emit({
+        "phase": "mltps_bn", "seconds": time.perf_counter() - t0, "setup_s": t_setup, "mltps_wall_s": wall,
+        "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": phases,
+        "cv_letter_s": {k[3:]: v for k, v in phases.items() if k.startswith("cv_") and len(k) == 4},
+        "launches": launches, "layers": layers, "jax_reference": JAX_REFERENCE_BN,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if launches["tps_grid"] != 6:
+        failures.append(f"K1 launched {launches['tps_grid']} times on the BRT + NN path, expected 6")
+    if launches["tree_grow"] <= 0 or launches["forest_predict"] <= 0:
+        failures.append(f"a tree kernel did not run on the BRT + NN path: {launches}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -831,8 +1044,10 @@ def main() -> int:
     phase_mltps_gm("float64")
     k2 = phase_kernel_k2()
     captured: dict = {}
-    launches = phase_mltps_b(captured)
+    phase_mltps_b(captured)
     k3 = phase_kernel_k3(captured)
+    phase_nn_lbfgs()
+    launches = phase_mltps_bn()
     k2cv = k2["shapes"]["cv"]
     # no single PyTorch call grows a tree or evaluates a forest: library_ms null.
     # tree_grow's times and bound are per tree at the CV shape (a launch on the

@@ -6,8 +6,9 @@ points take ``device=`` (default ``"cuda"``, which raises without a GPU).
 Three hand-written CUDA kernels (``csrc/``, built with nvcc at first use)
 run on CUDA tensors, their plain PyTorch versions on CPU tensors: the TPS
 grid prediction (K1), the boosting-tree grower (K2) and the forest
-bin-interval predictor (K3).  ``mltps`` runs over the BRT, GAM and MARS
-letters.
+bin-interval predictor (K3).  ``mltps`` runs over the BRT, GAM, NN and
+MARS letters; the NN trains with the port's copy of optax's L-BFGS
+(``optim/lbfgs.py``).
 """
 from .utils.precision import highest_precision
 

@@ -13,6 +13,7 @@ from .models.brt import BRTState
 from .models.gam import GAMState
 from .models.gbm_step import GBMStepResult
 from .models.mars import MARSState
+from .models.nn import NNState, flat_to_params, params_to_flat
 from .models.trees import Tree
 from .ops.tps import TPSModel
 from .utils import resolve_device
@@ -20,6 +21,7 @@ from .utils import resolve_device
 __all__ = [
     "tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy",
     "tree_from_numpy", "brt_state_from_numpy", "gbm_result_from_numpy",
+    "nn_state_from_jax", "nn_params_to_flat", "nn_params_from_flat",
 ]
 
 
@@ -86,3 +88,26 @@ def gbm_result_from_numpy(d, dtype=torch.float32, device="cuda") -> GBMStepResul
     for k in ("cv_deviance", "cv_deviance_se"):
         out[k] = _t(f[k], dtype, device)
     return GBMStepResult(**{k: out[k] for k in GBMStepResult._fields if k in out})
+
+
+def nn_state_from_jax(d, dtype=torch.float64, device="cuda") -> NNState:
+    """NNState from the JAX ``NNState`` fields (w1, b1, w2, b2, x_mean,
+    x_scale), with or without a leading lane axis."""
+    f = _fields(d)
+    return NNState(**{k: _t(f[k], dtype, device) for k in NNState._fields})
+
+
+def nn_params_to_flat(w1, b1, w2, b2, dtype=torch.float64, device="cuda") -> torch.Tensor:
+    """The L-BFGS layout of the JAX package's NN params tuple: (L, P) rows
+    [w1 (p, h) row-major, b1, w2, b2], P = p*h + 2h + 1, from params with a
+    leading lane axis (w1 (L, p, h)) or without one (one row)."""
+    parts = [_t(a, dtype, device) for a in (w1, b1, w2, b2)]
+    if parts[0].dim() == 2:
+        parts = [a[None] for a in parts]
+    return params_to_flat(*parts)
+
+
+def nn_params_from_flat(flat, p: int, hidden: int):
+    """Back from the L-BFGS layout: numpy (w1 (L, p, h), b1 (L, h), w2 (L, h),
+    b2 (L,)), the JAX package's params tuple with a lane axis."""
+    return tuple(a.detach().cpu().numpy() for a in flat_to_params(torch.as_tensor(flat), p, hidden))

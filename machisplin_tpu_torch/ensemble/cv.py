@@ -9,11 +9,15 @@ on the other nine (V73:227-232).
 Every (response, fold) model of a letter trains in one batched call: the
 0/1 train masks ride a leading batch axis of the model's ``sample_weight``;
 for BRT (``b``) every (response, fold) pair is one outer chain of the
-batched gbm.step (``models/gbm_step.fit_outer_batched``, kernel K2).
-Letters ported so far: ``b`` (BRT), ``g`` (GAM) and ``m`` (MARS).
+batched gbm.step (``models/gbm_step.fit_outer_batched``, kernel K2); for NN
+(``n``) every (response, fold) pair is one lane of the batched L-BFGS
+(``models/nn.py``), on a response min-shifted and max-scaled to [0, 1] with
+its train split's statistics (V73:234-241).  Letters ported so far: ``b``
+(BRT), ``g`` (GAM), ``n`` (NN) and ``m`` (MARS).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -21,17 +25,17 @@ import time
 import numpy as np
 import torch
 
-from ..models import gam, gbm_step, mars
+from ..models import gam, gbm_step, mars, nn
+from ..utils.timing import PhaseTimer
 from .kfold import fold_masks, kfold
 
 __all__ = ["CVConfig", "run_cv", "residual_matrix"]
 
 log = logging.getLogger("machisplin_tpu_torch.cv")
 
-PORTED_LETTERS = "bgm"
+PORTED_LETTERS = "bgnm"
 _LATER = {
     "r": "the random-forest slice",
-    "n": "the neural-network slice (optax L-BFGS port)",
     "v": "the SVM slice",
 }
 
@@ -59,20 +63,36 @@ class CVConfig:
             step_size=50, max_trees=10000,
         )
     )
+    nn: dict = dataclasses.field(default_factory=lambda: dict(hidden=10, maxit=10000))
     mars: dict = dataclasses.field(default_factory=dict)
     gam: dict = dataclasses.field(default_factory=dict)
 
 
+def _nn_y_transform(y, train_w):
+    """The reference's train-split min-shift/max-scale (V73:234-241), per
+    lane: y and train_w (L, n) -> (y scaled, y_min (L,), y_max (L,))."""
+    big = torch.finfo(y.dtype).max
+    y_min = torch.where(train_w > 0, y, big).amin(-1)
+    y_shift = y - y_min[:, None]
+    y_max = torch.where(train_w > 0, y_shift, -big).amax(-1).clamp_min(1e-12)
+    return y_shift / y_max[:, None], y_min, y_max
+
+
 def run_cv(
     x, y, *, config: CVConfig | None = None, algorithms: str = "gm",
-    folds=None, generator: torch.Generator | None = None,
+    folds=None, generator: torch.Generator | None = None, nn_init=None,
+    timer: PhaseTimer | None = None,
 ) -> dict[str, np.ndarray]:
     """Returns {letter: fold-major concatenated test residuals}.
 
     ``y`` is (n,) for one response or (n, R) for a batch; a batch returns
     {letter: (R, n_concat)}.  ``folds`` injects the (R, n) fold ids; without
     it they are drawn per response from ``generator``, which also seeds the
-    BRT letter's fold selectors and bag draws.
+    BRT letter's fold selectors and bag draws and the NN's initial weights.
+    ``nn_init`` injects those weights instead: (w1, b1, w2, b2) with a
+    leading (response x fold) axis, response-major.  ``timer`` times each
+    letter as phase ``cv_<letter>`` (synchronised, so a letter's seconds on
+    a GPU are its own).
     """
     require_ported(algorithms)
     config = config or CVConfig()
@@ -92,22 +112,34 @@ def run_cv(
     flat_w = train_w.reshape(n_resp * k, n).to(x.dtype)
     flat_y = ys.T.repeat_interleave(k, dim=0)                # (R*K, n)
 
+    timer = timer or PhaseTimer()
     preds = {}
+
+    @contextlib.contextmanager
+    def letter(name):
+        t0 = time.perf_counter()
+        with timer.phase(f"cv_{name}"):
+            yield
+        log.info("cv letter %s done in %.1f s", name, time.perf_counter() - t0)
+
     if "g" in algorithms:
-        t0 = time.perf_counter()
-        preds["g"] = gam.predict(gam.fit(x, flat_y, sample_weight=flat_w, **config.gam), x)
-        log.info("cv letter g done in %.1f s", time.perf_counter() - t0)
+        with letter("g"):
+            preds["g"] = gam.predict(gam.fit(x, flat_y, sample_weight=flat_w, **config.gam), x)
+    if "n" in algorithms:
+        with letter("n"):
+            # every (response, fold) model is one lane of the batched L-BFGS
+            yn, y_min, y_max = _nn_y_transform(flat_y, flat_w)
+            state = nn.fit(x, yn, sample_weight=flat_w, init=nn_init, generator=generator, **config.nn)
+            preds["n"] = nn.predict(state, x) * y_max[:, None] + y_min[:, None]
     if "m" in algorithms:
-        t0 = time.perf_counter()
-        preds["m"] = mars.predict(mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x)
-        log.info("cv letter m done in %.1f s", time.perf_counter() - t0)
+        with letter("m"):
+            preds["m"] = mars.predict(mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x)
     if "b" in algorithms:
-        t0 = time.perf_counter()
-        # every (response, outer fold) gbm.step run is one outer chain of a
-        # single batched curve: R x K x K boosting chains per K2 launch
-        preds_b, _ = gbm_step.fit_outer_batched(x, flat_y, flat_w, generator=generator, **config.brt)
-        preds["b"] = preds_b.to(x.dtype)
-        log.info("cv letter b done in %.1f s", time.perf_counter() - t0)
+        with letter("b"):
+            # every (response, outer fold) gbm.step run is one outer chain of
+            # a single batched curve: R x K x K boosting chains per K2 launch
+            preds_b, _ = gbm_step.fit_outer_batched(x, flat_y, flat_w, generator=generator, **config.brt)
+            preds["b"] = preds_b.to(x.dtype)
 
     # fold-major concatenation of test residuals (V73:255-319), per response
     test_np = test_w.cpu().numpy() > 0

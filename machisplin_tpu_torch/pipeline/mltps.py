@@ -19,9 +19,9 @@ part 5  final = ensemble + error surface, station R^2, and the keep-the-
         correction-only-if-R^2-improves rule (V73:898-965).
 
 The letters ported so far are BRT (``b``: batched gbm.step on kernel K2,
-and a merged-forest raster pass on kernel K3), GAM (``g``) and MARS (``m``);
-any other letter in the pool raises NotImplementedError naming the slice
-that brings it.
+and a merged-forest raster pass on kernel K3), GAM (``g``), NN (``n``: the
+batched L-BFGS of ``models/nn.py``) and MARS (``m``); any other letter in
+the pool raises NotImplementedError naming the slice that brings it.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch
 from ..ensemble.cv import CVConfig, require_ported, residual_matrix, run_cv
 from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb
 from ..grid import GridSpec, Raster, crop, extract, lonlat_rasters, stack
-from ..models import gam, gbm_step, mars
+from ..models import gam, gbm_step, mars, nn
 from ..models.base import LETTER_TO_NAME
 from ..models.trees import Tree
 from ..ops.feather import feather_blend
@@ -61,6 +61,7 @@ class MLTPSConfig:
             step_size=50, max_trees=10000,
         )
     )
+    final_nn: dict = dataclasses.field(default_factory=lambda: dict(hidden=10, maxit=10000))
     final_mars: dict = dataclasses.field(default_factory=dict)
     final_gam: dict = dataclasses.field(default_factory=dict)
     tps_tile_px: int = 1500          # V73:656-660
@@ -140,11 +141,22 @@ def _prepare_inputs(int_values, covar_ras: Raster):
     return rast_stack, list(rast_stack.names), full[:, :2], x, responses
 
 
-def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig):
+def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=None, nn_init=None):
     """Final-fit one algorithm for SEVERAL responses (ycols (n, R)) in one
-    batched call.  Returns (predict_fn (m, p) -> (m, R), [importance dicts])."""
+    batched call.  Returns (predict_fn (m, p) -> (m, R), [importance dicts]).
+    The NN's initial weights are drawn from ``generator``, or injected as
+    ``nn_init`` (w1, b1, w2, b2) with a leading response axis."""
     n_resp = ycols.shape[1]
     y_b = ycols.T.contiguous()
+    if letter == "n":
+        # the reference's response min-shift/max-scale (V73:454-459), per column
+        y_min = ycols.amin(0)
+        y_max = (ycols - y_min[None, :]).amax(0).clamp_min(1e-30)
+        yn = (ycols - y_min[None, :]) / y_max[None, :]
+        states = nn.fit(x, yn.T.contiguous(), init=nn_init, generator=generator, **config.final_nn)
+        fn = lambda q: nn.predict(states, q).T * y_max[None, :] + y_min[None, :]
+        imps = [nn.importance(nn.NNState(*(a[j] for a in states)), names) for j in range(n_resp)]
+        return fn, imps
     if letter == "g":
         states = gam.fit(x, y_b, **config.final_gam)
         fn = lambda q: gam.predict(states, q).T
@@ -308,7 +320,8 @@ def mltps(
 
     ``folds``: optional (R, n) CV fold ids in [0, k) for the n stations left
     after the NA drop; without them folds are drawn from ``generator``,
-    which also seeds gbm.step's fold selectors and bag draws.
+    which also seeds gbm.step's fold selectors and bag draws and the NN's
+    initial weights.
     ``trouble``: the reference's BRT-only switch — every response keeps
     "b" at weight 1 whatever the weight search finds (V73:446).
     ``device``: where the run happens (``"cuda"`` raises without a GPU).
@@ -341,7 +354,7 @@ def mltps(
     with timer.phase("cv_all_responses"):
         cv_all = run_cv(
             x, torch.as_tensor(ys_all, dtype=dtype, device=dev), config=config.cv,
-            algorithms=letters_pool, folds=folds, generator=generator,
+            algorithms=letters_pool, folds=folds, generator=generator, timer=timer,
         )
 
     wres_all, kept_all = [], []
@@ -378,7 +391,7 @@ def mltps(
             bsurf, bpt, imps = _final_brt_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
         else:
             with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
-                bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config)
+                bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config, generator)
             with timer.phase(f"raster_predict_{letter}_x{len(sel)}"):
                 bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=len(sel))
             bpt = bfn(x)

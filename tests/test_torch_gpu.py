@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
 (tree grower, one tree and a 50-tree cycle per launch) and K3 (forest
-predictor).
+predictor); and the NN letter's L-BFGS on the card against the CPU.
 
 These tests need a CUDA device and nvcc; they skip without them.  They import
 nothing of JAX, so they also run where JAX is not installed:
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from machisplin_tpu_torch import grid as tgrid
-from machisplin_tpu_torch.models import trees as ttrees
+from machisplin_tpu_torch.models import nn as tnn, trees as ttrees
 from machisplin_tpu_torch.ops import forest as ttforest, tps as ttps, tps_grid as ttg, tree_grow as ttgrow
 from test_torch_forest_tables import random_forest
 
@@ -268,3 +268,41 @@ def test_k3_refuses_cells_off_the_tables_device(cuda):
     with pytest.raises(ValueError, match="tables on cuda"):
         ttforest.predict_prepared(ttforest.prepare_forest(tree, torch.ones(1), tabs, cuda), x)
     assert ttforest.LAUNCHES["forest_predict"] == before
+
+
+def _nn_lanes(dtype, device, lanes=6, n=300, p=5, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, p)) * np.array([1.0, 30.0, 2.0, 5.0, 0.5]) + 100.0
+    y = np.tanh(x[:, 0] - 100.0) + 0.01 * x[:, 1] + 0.05 * rng.normal(size=n)
+    y = (y - y.min()) / np.ptp(y)
+    w = (rng.uniform(size=(lanes, n)) > 0.1).astype(np.float64)
+    init = tnn.draw_init(lanes, p, 10, generator=torch.Generator().manual_seed(seed + 1), dtype=dtype, device=device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(x), t(y).expand(lanes, n).contiguous(), t(w), init
+
+
+@pytest.mark.parametrize("steps,tol", [(10, 1e-9), (50, 1e-5)])
+def test_nn_lbfgs_card_matches_cpu(cuda, steps, tol):
+    """float64 L-BFGS steps of 6 NN lanes from the same inits: the card's
+    predictions (through the CUDA graph) against the CPU's, of the response
+    range, with chip_smoke's tolerances (the 50-step one widened for the
+    training's amplification of rounding-order differences)."""
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        x, y, w, init = _nn_lanes(torch.float64, dev)
+        state = tnn.fit(x, y, sample_weight=w, hidden=10, maxit=steps, init=init)
+        preds[dev] = tnn.predict(state, x).cpu()
+    assert float((preds["cuda"] - preds["cpu"]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nn_lbfgs_graph_equals_eager(cuda, dtype):
+    """The CUDA graph replays the eager pass's kernels: bit-identical params,
+    and a handful of host syncs for the whole fit."""
+    x, y, w, init = _nn_lanes(dtype, cuda)
+    stats = {}
+    graph = tnn.fit(x, y, sample_weight=w, hidden=10, maxit=60, init=init, graph=True, stats=stats)
+    eager = tnn.fit(x, y, sample_weight=w, hidden=10, maxit=60, init=init, graph=False)
+    for a, b in zip(graph, eager):
+        assert torch.equal(a, b)
+    assert stats["syncs"] <= 10 and stats["capture_s"] > 0

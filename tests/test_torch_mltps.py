@@ -68,5 +68,5 @@ def test_mltps_tps_kept_only_if_r2_improves(both_runs):
 
 def test_mltps_unported_pool_raises():
     cov = mtt.synthetic_covariates(downsample=48, device="cpu")
-    with pytest.raises(NotImplementedError, match="neural-network"):
+    with pytest.raises(NotImplementedError, match="random-forest"):
         mtt.mltps(mtt.load_sampling(), cov, device="cpu")

@@ -63,6 +63,8 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: g.y_coords(),
         lambda: ttiles.pack_tiles([np.zeros((3, 2))], [np.zeros(3)]),
         lambda: convert.gam_state_from_numpy({"coef": np.zeros(3), "x_mean": np.zeros(2), "x_scale": np.ones(2)}),
+        lambda: convert.nn_params_to_flat(np.zeros((2, 3)), np.zeros(3), np.zeros(3), np.zeros(())),
+        lambda: convert.nn_state_from_jax({k: np.zeros(2) for k in ("w1", "b1", "w2", "b2", "x_mean", "x_scale")}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -195,8 +197,10 @@ def test_weight_keep_rule_matches_jax(rng):
 
 def test_unported_letters_raise():
     x = torch.zeros((40, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="neural-network"):
-        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="ng")
+    with pytest.raises(NotImplementedError, match="SVM"):
+        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="vg")
+    with pytest.raises(NotImplementedError, match="random-forest"):
+        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="nr")
 
 
 def _port_sources():
@@ -220,16 +224,18 @@ def test_port_never_imports_jax(path):
             continue
         for m in mods:
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "machisplin_tpu", "tests"), f"{path} imports {m}"
+            assert top not in ("jax", "jaxlib", "optax", "machisplin_tpu", "tests"), f"{path} imports {m}"
 
 
 def test_port_imports_with_jax_blocked():
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['machisplin_tpu'] = None; "
+        "import sys; sys.modules['jax'] = None; sys.modules['optax'] = None; "
+        "sys.modules['machisplin_tpu'] = None; "
         "import machisplin_tpu_torch, machisplin_tpu_torch.convert, "
         "machisplin_tpu_torch.kernels.build, machisplin_tpu_torch.ops.tps_grid, "
         "machisplin_tpu_torch.ops.tree_grow, machisplin_tpu_torch.ops.forest, "
-        "machisplin_tpu_torch.models.gbm_step, machisplin_tpu_torch.models.brt; "
+        "machisplin_tpu_torch.models.gbm_step, machisplin_tpu_torch.models.brt, "
+        "machisplin_tpu_torch.optim.lbfgs, machisplin_tpu_torch.models.nn; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
