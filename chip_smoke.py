@@ -58,7 +58,23 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   JAX package's wherever all its recorded keys agree, each r² within
   max(0.01, 3 x the JAX package's spread over keys) of their mean
   (``tools/record_jax_bn_r2.py``), the CV's seconds per letter, the NN
-  finals and raster pass, and peak device memory.
+  finals and raster pass, and peak device memory;
+* ``kernel_svm``: the SVM's coordinate sweep K4 against its plain version
+  at the CV shape (20 (response x fold) lanes x 813 stations, 120 sweeps),
+  in float32 (theta and the multiplier within SVM_TOL["float32"] of C) and
+  float64 (SVM_TOL["float64"]), with CUDA-event ms a launch, ns a
+  coordinate step, the bound from bytes and operations and the plain
+  version's ms;
+* ``mltps_main``: the north-star call, ``mltps(load_sampling(),
+  synthetic_covariates(downsample=1), tps=True)`` with no ``letters_pool``
+  (the six-letter pool "bgnmrv"), float32 as built, numpy-drawn folds:
+  K1 = 6, K2, K3 and K4 > 0 launches, finite surfaces, the kept letters
+  those of the JAX package's recorded keys (one of theirs where the keys
+  disagree), each r² within max(0.01, 3 x the keys' spread) of their mean
+  (``tools/record_jax_main_r2.py``), per-phase seconds with every CV
+  letter apart, and peak device memory.  ``kernel_k3`` also holds K3 on a
+  merged 2-response random forest of the default 500 trees a response
+  grown on the stations (every tree in the slot loop).
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -142,8 +158,32 @@ JAX_REFERENCE_BN = {
 NN_TOL, NN_TOL_EARLY = 1e-5, 1e-9
 NN_STEPS_CHECK, NN_STEPS_EARLY, NN_STEPS_TIMED = 50, 10, 200
 
+# The JAX package's values for the north-star call (the default pool; covariates
+# as built, float32; folds from numpy_folds(813, 10, 2, seed=0)), PRNG keys 0-3,
+# from `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_main_r2.py
+# --keys 0,1,2,3 1` (CPU, 731-869 s a key on an 8-core CPU).  The bags, inits,
+# sigest pairs and bootstrap draws are threefry draws there and torch draws
+# here, so each r² is held to the keys' mean within max(R2_TOL_B, 3 x their
+# spread): 0.01, except bio_12's r² final (spread 0.0048, band 0.0143).  Every
+# key keeps "bn", with RF and SVM at weight 0 (no key ran the RF finals).
+JAX_REFERENCE_MAIN = {
+    "bio_1": {"kept": ["bn", "bn", "bn", "bn"],
+              "r2_ensemble": [0.9374573331419003, 0.9385583187222053, 0.9380080374940384, 0.9372275173388972],
+              "r2_final": [0.9959510782976777, 0.9952605762203365, 0.9948814059705463, 0.9953915118820694]},
+    "bio_12": {"kept": ["bn", "bn", "bn", "bn"],
+               "r2_ensemble": [0.8648265456252783, 0.8660241190387852, 0.8642666644826565, 0.8669479996356637],
+               "r2_final": [0.9352243489542087, 0.9333218733942671, 0.9380813708816351, 0.9343377943281279]},
+}
+# K4 against its plain version on the card, of C (= 1, the bound of |theta|):
+# the same steps with the dot products summed in another order.  One step's
+# rounding is ~n eps |q| |theta|; the sweep is a contraction, so it does not
+# grow by the step count: float32 ~1e-5, float64 ~1e-13.
+SVM_TOL = {"float32": 1e-3, "float64": 1e-9}
+SVM_EPOCHS = 120
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -320,17 +360,17 @@ def phase_mltps_gm(dtype: str):
 
 
 def _reset_launches():
-    from machisplin_tpu_torch.ops import forest, tps_grid, tree_grow
+    from machisplin_tpu_torch.ops import forest, svm_sweep, tps_grid, tree_grow
 
-    for counts in (tps_grid.LAUNCHES, tree_grow.LAUNCHES, forest.LAUNCHES):
+    for counts in (tps_grid.LAUNCHES, tree_grow.LAUNCHES, forest.LAUNCHES, svm_sweep.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def _read_launches() -> dict:
-    from machisplin_tpu_torch.ops import forest, tps_grid, tree_grow
+    from machisplin_tpu_torch.ops import forest, svm_sweep, tps_grid, tree_grow
 
-    return {**tps_grid.LAUNCHES, **tree_grow.LAUNCHES, **forest.LAUNCHES}
+    return {**tps_grid.LAUNCHES, **tree_grow.LAUNCHES, **forest.LAUNCHES, **svm_sweep.LAUNCHES}
 
 
 def _stations(device="cuda"):
@@ -705,12 +745,14 @@ def _k3_check(ft, x) -> dict:
             "agrees": counts_equal and bool((err <= K3_TOL * scale).all())}
 
 
-def _k3_path_work(trees, tables, ft, x):
+def _k3_path_work(trees, tables, ft, x, levels=None):
     """What the function needs for these cells (plain routing,
     models/trees.tree_assign): per cell and tree, one compare for each split
     node on the path from the root to the cell's leaf, and one add for each
     nonzero weighted value of the leaf's slot (R where every weight is
-    nonzero; the dropped leaf needs none).  Returns (compares, adds)."""
+    nonzero; the dropped leaf needs none).  ``levels``: the trees' largest
+    depth when known (heap-layout trees), else their split count bounds it.
+    Returns (compares, adds)."""
     import numpy as np
     import torch
 
@@ -721,8 +763,9 @@ def _k3_path_work(trees, tables, ft, x):
     n_t, n_nodes = internal.shape
     depth = np.zeros((n_t, n_nodes), np.int64)
     rows = np.arange(n_t)[:, None]
-    for _ in range(n_nodes):          # relax until every child sits one below its parent
+    for _ in range(levels or n_nodes):   # relax until every child sits one below its parent
         for child in (left, right):
+            child = np.where(internal, child, 0)     # a leaf's children (none, or out of range) to the root
             depth[rows, child] = np.where(internal, depth + 1, depth[rows, child])
     real = np.flatnonzero(tables.leaf_tree >= 0)
     nnz = np.zeros((n_t, n_nodes), np.int64)
@@ -730,7 +773,7 @@ def _k3_path_work(trees, tables, ft, x):
                                                           != 0).sum(1).cpu().numpy()
     dev = x.device
     depth_t, nnz_t = torch.as_tensor(depth, device=dev), torch.as_tensor(nnz, device=dev)
-    max_depth = int(internal.sum(1).max())
+    max_depth = levels or int(internal.sum(1).max())
     chunk = 128                       # trees routed at once: (128, m) int64 routes
     compares = adds = 0
     for t0 in range(0, n_t, chunk):
@@ -829,6 +872,7 @@ def phase_kernel_k3(captured: dict):
         sft = forest.prepare_forest(six, wts[:n6], six_tab, "cuda", s_max=s_max)
         s_max_ms[f"s_max_{s_max}"] = {"trees_tabled": int(sft.desc.shape[0]),
                                       "ms": cuda_ms(lambda: forest.forest_predict_cuda(sft, x), reps=5)}
+    rf_res = _k3_rf_forest(x)
     res = {
         "phase": "kernel_k3", "seconds": time.perf_counter() - t0, "panel_rows": [r0, r0 + 256],
         "cells": m, "features": p, "slots": slots, "real_slots": real_slots, "responses": n_resp,
@@ -838,20 +882,65 @@ def phase_kernel_k3(captured: dict):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "slot_count": {"constrained_bounds": bounds, "ops": slot_ops, "bound_ms": slot_ops / PEAK_F32_OPS * 1e3},
         "mixed_forest": mixed, "six_split_trees": s_max_ms, "outcome_tables_host_s": outcome_s,
-        "ptxas": _ptxas_summary("forest_predict"),
+        "rf_forest": rf_res, "ptxas": _ptxas_summary("forest_predict"),
     }
     emit(res)
     failures = [f"K3 disagrees with its plain version on the {name} forest: counts equal "
                 f"{r['membership_counts_equal']}, err {r['max_abs_err']} > {K3_TOL} * {r['sum_abs_wv']}"
-                for name, r in (("main path's", main), ("mixed", mixed)) if not r["agrees"]]
+                for name, r in (("main path's", main), ("mixed", mixed), ("random", rf_res)) if not r["agrees"]]
     if not mixed["trees_tabled"] or not mixed["loop_slots"]:
         failures.append(f"the mixed forest did not run both loops: {mixed['trees_tabled']} trees tabled, "
                         f"{mixed['loop_slots']} loop slots")
     if not res["bound_ms"] <= ms:
         failures.append(f"K3's bound {res['bound_ms']} ms lies above its time {ms} ms")
+    if rf_res["trees_tabled"] or not rf_res["loop_slots"] or not rf_res["bound_ms"] <= rf_res["ms"]:
+        failures.append(f"the random forest did not run in the slot loop alone, or its bound lies above its "
+                        f"time: {rf_res['trees_tabled']} trees tabled, {rf_res['bound_ms']} > {rf_res['ms']} ms")
     if failures:
         raise RuntimeError("; ".join(failures))
     res["max_abs_err"] = max(main["max_abs_err"])
+    return res
+
+
+def _k3_rf_forest(x) -> dict:
+    """K3 on the random forest the RF finals would build: 2 responses x the
+    default 500 trees a response (MLTPSConfig().final_rf, max depth 9)
+    grown on the stations, merged with a (1000, 2) weight matrix of 1/500
+    on each response's own trees, on the panel's cells ``x``; with the
+    bound counted as for the BRT forest (path compares and adds)."""
+    import torch
+
+    from machisplin_tpu_torch.models import rf, trees as ttrees
+    from machisplin_tpu_torch.ops import forest
+    from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
+
+    x_np, ys = _stations()
+    t0 = time.perf_counter()
+    st = rf.fit(torch.as_tensor(x_np, device="cuda"), torch.as_tensor(ys.T.copy(), dtype=torch.float32, device="cuda"),
+                generator=torch.Generator().manual_seed(11), **MLTPSConfig().final_rf)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_resp, ntree = st.trees.feat.shape[:2]
+    host = ttrees.Tree(*(a.reshape((n_resp * ntree,) + a.shape[2:]).cpu() for a in st.trees))
+    wmat = torch.kron(torch.eye(n_resp), torch.full((ntree, 1), 1.0 / ntree))
+    t1 = time.perf_counter()
+    tables = forest.build_leaf_bins(host, n_feat=x.shape[1])
+    ft = forest.prepare_forest(host, wmat, tables, "cuda")
+    tables_s = time.perf_counter() - t1
+    res = _k3_check(ft, x)
+    res["ms"] = cuda_ms(lambda: forest.forest_predict_cuda(ft, x), reps=3)
+    res["plain_ms"] = cuda_ms(lambda: forest.forest_predict_plain(ft, x), reps=1)
+    compares, adds = _k3_path_work(host, tables, ft, x, levels=st.max_depth)
+    m, p = x.shape
+    real_slots = int((ft.lo <= ft.hi).all(0).sum())
+    nbytes = 4 * m * (p + n_resp) + real_slots * (-(-p // 4) * 8 + 4 * n_resp)
+    t_ops, t_bytes = (compares + adds) / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    res.update({
+        "trees": n_resp * ntree, "max_depth": st.max_depth, "splits_max": int(host.internal.sum(1).max()),
+        "splits_mean": float(host.internal.sum(1).float().mean()), "fit_s": fit_s, "tables_s": tables_s,
+        "path_compares": compares, "adds": adds, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    })
     return res
 
 
@@ -959,9 +1048,9 @@ def phase_nn_lbfgs():
     return res
 
 
-def _bn_band(name: str, key: str):
+def _bn_band(name: str, key: str, ref=None):
     """(mean, tolerance) of the JAX package's values of ``key`` over its keys."""
-    vals = JAX_REFERENCE_BN[name][key]
+    vals = (ref or JAX_REFERENCE_BN)[name][key]
     spread = max(vals) - min(vals)
     return sum(vals) / len(vals), max(R2_TOL_B, 3 * spread)
 
@@ -1026,6 +1115,143 @@ def phase_mltps_bn():
     return launches
 
 
+def svm_cv_inputs(dtype: str):
+    """K4's operands at the CV shape, as the SVM letter builds them on the
+    card (``models/svm.sweep_inputs``): the stations' covariates, 20
+    (response x fold) lanes with folds from numpy_folds(n, 10, 2, seed=0)
+    and seeded sigest pairs.  Returns (q, ys, w, diag)."""
+    import torch
+
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import svm
+
+    x_np, ys = _stations()
+    n, p = x_np.shape
+    dt = getattr(torch, dtype)
+    x = torch.as_tensor(x_np, dtype=dt, device="cuda")
+    folds = torch.as_tensor(numpy_folds(n, 10, 2, seed=0), device="cuda")
+    w = (folds[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).to(dt).reshape(20, n)
+    y = torch.as_tensor(ys.T.copy(), dtype=dt, device="cuda").repeat_interleave(10, dim=0)
+    pairs = tuple(a.cuda() for a in svm.draw_sigest_pairs(20, n, torch.Generator().manual_seed(9)))
+    _, ysn, q, diag = svm.sweep_inputs(x.expand(20, n, p), y, w, pairs)
+    return q, ysn, w.contiguous(), diag
+
+
+def _event_ms(fn):
+    """(fn's result, its CUDA-event ms), one run."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_kernel_svm():
+    """K4 against its plain version at the CV shape, float32 and float64:
+    theta and the multiplier within SVM_TOL of C; CUDA-event times and the
+    bound."""
+    import torch
+
+    from machisplin_tpu_torch.ops import svm_sweep
+
+    t0 = time.perf_counter()
+    per, failures = {}, []
+    for dtype in ("float32", "float64"):
+        q, ys, w, diag = svm_cv_inputs(dtype)
+        lanes, n = ys.shape
+        (theta, lam), first_ms = _event_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=SVM_EPOCHS))
+        (ptheta, plam), plain_ms = _event_ms(lambda: svm_sweep.svm_sweep_plain(q, ys, w, diag, epochs=SVM_EPOCHS))
+        err = max(float((theta - ptheta).abs().max()), float((lam - plam).abs().max()))
+        ms = cuda_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=SVM_EPOCHS), reps=3)
+        size = q.element_size()
+        # each input read once (q, ys, w, diag), each output written once (theta, lam);
+        # a coordinate step: the row's n multiply-adds and ~15 scalar operations
+        nbytes = size * (lanes * n * n + 4 * lanes * n + lanes)
+        ops = lanes * SVM_EPOCHS * n * (2 * n + 15)
+        peak = PEAK_F32_OPS if dtype == "float32" else PEAK_F64_OPS
+        t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        per[dtype] = {
+            "lanes": lanes, "stations": n, "epochs": SVM_EPOCHS, "max_abs_err": err, "tol": SVM_TOL[dtype],
+            "finite": bool(torch.isfinite(theta).all() and torch.isfinite(lam).all()),
+            "support_vectors_mean": float((theta.abs() > 1e-6).sum(1).float().mean()),
+            "ms": ms, "first_launch_ms": first_ms, "ns_per_step": ms * 1e6 / (SVM_EPOCHS * n),
+            "plain_ms": plain_ms, "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        if not (per[dtype]["finite"] and err <= SVM_TOL[dtype]):
+            failures.append(f"K4 disagrees with its plain version in {dtype}: {err} > {SVM_TOL[dtype]}")
+    res = {"phase": "kernel_svm", "seconds": time.perf_counter() - t0, **per,
+           "ptxas": _ptxas_summary("svm_sweep")}
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return per["float32"]
+
+
+def phase_mltps_main():
+    """The north-star call: mltps with the default pool at full size, float32."""
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 2, seed=0)
+    t_setup = time.perf_counter() - t0
+
+    timer = mtt.PhaseTimer()
+    _reset_launches()
+    t1 = time.perf_counter()
+    out = mtt.mltps(s, cov, tps=True, folds=folds, generator=torch.Generator().manual_seed(0), device="cuda",
+                    timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _read_launches()
+
+    mask = torch.isfinite(cov.data).all(0)
+    layers, failures = {}, []
+    for r in out:
+        for attr in ("final", "ensemble", "tps_surface"):
+            d = getattr(r, attr).data
+            if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
+                failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
+        got = {"kept": r.summary["best model(s):"], "percent": r.summary["ensemble weights:"],
+               "weights": [float(v) for v in r.weights.weights],
+               "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"]}
+        layers[r.name] = got
+        kept_jax = set(JAX_REFERENCE_MAIN[r.name]["kept"])
+        if got["kept"] not in kept_jax:
+            failures.append(f"{r.name} kept {got['kept']!r}, the JAX keys keep {sorted(kept_jax)}")
+        for key in ("r2_ensemble", "r2_final"):
+            mean, tol = _bn_band(r.name, key, JAX_REFERENCE_MAIN)
+            got[key + "_band"] = [mean, tol]
+            if not abs(got[key] - mean) <= tol:
+                failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {mean} +- {tol}")
+    phases = timer.as_dict()
+    emit({
+        "phase": "mltps_main", "seconds": time.perf_counter() - t0, "setup_s": t_setup, "mltps_wall_s": wall,
+        "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": phases,
+        "cv_letter_s": {k[3:]: v for k, v in phases.items() if k.startswith("cv_") and len(k) == 4},
+        "launches": launches, "layers": layers, "jax_reference": JAX_REFERENCE_MAIN,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if launches["tps_grid"] != 6:
+        failures.append(f"K1 launched {launches['tps_grid']} times on the main path, expected 6")
+    for name in ("tree_grow", "forest_predict", "svm_sweep"):
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} did not run on the main path: {launches}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -1047,9 +1273,12 @@ def main() -> int:
     phase_mltps_b(captured)
     k3 = phase_kernel_k3(captured)
     phase_nn_lbfgs()
-    launches = phase_mltps_bn()
+    phase_mltps_bn()
+    k4 = phase_kernel_svm()
+    launches = phase_mltps_main()
     k2cv = k2["shapes"]["cv"]
-    # no single PyTorch call grows a tree or evaluates a forest: library_ms null.
+    # no single PyTorch call grows a tree, evaluates a forest or runs a
+    # coordinate sweep: library_ms null.
     # tree_grow's times and bound are per tree at the CV shape (a launch on the
     # path grows a cycle of K2_CYCLE trees)
     emit({"kernels": [{
@@ -1067,6 +1296,12 @@ def main() -> int:
         "replaces": "machisplin_tpu/ops/pallas_forest.py:200", "launches": launches["forest_predict"],
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+    }, {
+        # not a Pallas kernel: the JAX package's sweep is a lax.fori_loop (svm.py:134)
+        "name": "svm_sweep", "route": "cuda", "source": "machisplin_tpu_torch/csrc/svm_sweep.cu",
+        "replaces": "machisplin_tpu/models/svm.py:134", "launches": launches["svm_sweep"],
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

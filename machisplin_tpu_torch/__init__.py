@@ -3,12 +3,12 @@
 A second package beside the JAX one, ported slice by slice; it imports
 torch, numpy and scipy and nothing of JAX or of ``machisplin_tpu``.  Entry
 points take ``device=`` (default ``"cuda"``, which raises without a GPU).
-Three hand-written CUDA kernels (``csrc/``, built with nvcc at first use)
+Four hand-written CUDA kernels (``csrc/``, built with nvcc at first use)
 run on CUDA tensors, their plain PyTorch versions on CPU tensors: the TPS
-grid prediction (K1), the boosting-tree grower (K2) and the forest
-bin-interval predictor (K3).  ``mltps`` runs over the BRT, GAM, NN and
-MARS letters; the NN trains with the port's copy of optax's L-BFGS
-(``optim/lbfgs.py``).
+grid prediction (K1), the boosting-tree grower (K2), the forest
+bin-interval predictor (K3) and the SVM's coordinate sweep (K4).  ``mltps``
+runs over all six letters (BRT, GAM, NN, MARS, RF, SVM); the NN trains with
+the port's copy of optax's L-BFGS (``optim/lbfgs.py``).
 """
 from .utils.precision import highest_precision
 

@@ -14,6 +14,8 @@ from .models.gam import GAMState
 from .models.gbm_step import GBMStepResult
 from .models.mars import MARSState
 from .models.nn import NNState, flat_to_params, params_to_flat
+from .models.rf import RFState
+from .models.svm import SVMState
 from .models.trees import Tree
 from .ops.tps import TPSModel
 from .utils import resolve_device
@@ -22,6 +24,7 @@ __all__ = [
     "tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy",
     "tree_from_numpy", "brt_state_from_numpy", "gbm_result_from_numpy",
     "nn_state_from_jax", "nn_params_to_flat", "nn_params_from_flat",
+    "svm_state_from_jax", "rf_state_from_jax",
 ]
 
 
@@ -111,3 +114,19 @@ def nn_params_from_flat(flat, p: int, hidden: int):
     """Back from the L-BFGS layout: numpy (w1 (L, p, h), b1 (L, h), w2 (L, h),
     b2 (L,)), the JAX package's params tuple with a lane axis."""
     return tuple(a.detach().cpu().numpy() for a in flat_to_params(torch.as_tensor(flat), p, hidden))
+
+
+def svm_state_from_jax(d, dtype=torch.float64, device="cuda") -> SVMState:
+    """SVMState from the JAX ``SVMState`` fields (sv_x, theta, bias, sigma,
+    x_mean, x_scale, y_mean, y_scale), with or without a leading lane axis."""
+    f = _fields(d)
+    return SVMState(**{k: _t(f[k], dtype, device) for k in SVMState._fields})
+
+
+def rf_state_from_jax(d, dtype=torch.float32, device="cuda") -> RFState:
+    """RFState from the JAX ``RFState`` fields: its ``trees`` a Tree of (T, N)
+    arrays, ``max_depth`` an int, edges, oob_count and train_pred in ``dtype``."""
+    f = _fields(d)
+    return RFState(trees=tree_from_numpy(f["trees"], dtype, device), edges=_t(f["edges"], dtype, device),
+                   max_depth=int(np.asarray(f["max_depth"])), oob_count=_t(f["oob_count"], dtype, device),
+                   train_pred=_t(f["train_pred"], dtype, device))

@@ -12,8 +12,13 @@ for BRT (``b``) every (response, fold) pair is one outer chain of the
 batched gbm.step (``models/gbm_step.fit_outer_batched``, kernel K2); for NN
 (``n``) every (response, fold) pair is one lane of the batched L-BFGS
 (``models/nn.py``), on a response min-shifted and max-scaled to [0, 1] with
-its train split's statistics (V73:234-241).  Letters ported so far: ``b``
-(BRT), ``g`` (GAM), ``n`` (NN) and ``m`` (MARS).
+its train split's statistics (V73:234-241); for SVM (``v``) every pair is
+one lane of the batched coordinate sweep (kernel K4), on the gathered rows
+of its one training fold when the split is inverted; for RF (``r``) all
+(response x fold) forests grow in one batched call and the predictions come
+from the growers' own node assignments (``RFState.train_pred``).  All six
+letters of the reference are ported: ``b`` (BRT), ``g`` (GAM), ``n`` (NN),
+``m`` (MARS), ``r`` (RF) and ``v`` (SVM).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from ..models import gam, gbm_step, mars, nn
+from ..models import gam, gbm_step, mars, nn, rf, svm
 from ..utils.timing import PhaseTimer
 from .kfold import fold_masks, kfold
 
@@ -33,21 +38,7 @@ __all__ = ["CVConfig", "run_cv", "residual_matrix"]
 
 log = logging.getLogger("machisplin_tpu_torch.cv")
 
-PORTED_LETTERS = "bgnm"
-_LATER = {
-    "r": "the random-forest slice",
-    "v": "the SVM slice",
-}
-
-
-def require_ported(letters: str) -> None:
-    """Raise NotImplementedError naming the slice that ports a letter."""
-    for letter in letters:
-        if letter not in PORTED_LETTERS:
-            raise NotImplementedError(
-                f"algorithm {letter!r} is not ported yet: it comes with "
-                f"{_LATER.get(letter, 'a later slice')}"
-            )
+PORTED_LETTERS = "bgnmrv"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +54,10 @@ class CVConfig:
             step_size=50, max_trees=10000,
         )
     )
+    rf: dict = dataclasses.field(default_factory=lambda: dict(ntree=500))
     nn: dict = dataclasses.field(default_factory=lambda: dict(hidden=10, maxit=10000))
     mars: dict = dataclasses.field(default_factory=dict)
+    svm: dict = dataclasses.field(default_factory=dict)
     gam: dict = dataclasses.field(default_factory=dict)
 
 
@@ -81,20 +74,26 @@ def _nn_y_transform(y, train_w):
 def run_cv(
     x, y, *, config: CVConfig | None = None, algorithms: str = "gm",
     folds=None, generator: torch.Generator | None = None, nn_init=None,
-    timer: PhaseTimer | None = None,
+    svm_pairs=None, rf_draws=None, timer: PhaseTimer | None = None,
 ) -> dict[str, np.ndarray]:
     """Returns {letter: fold-major concatenated test residuals}.
 
     ``y`` is (n,) for one response or (n, R) for a batch; a batch returns
     {letter: (R, n_concat)}.  ``folds`` injects the (R, n) fold ids; without
     it they are drawn per response from ``generator``, which also seeds the
-    BRT letter's fold selectors and bag draws and the NN's initial weights.
-    ``nn_init`` injects those weights instead: (w1, b1, w2, b2) with a
-    leading (response x fold) axis, response-major.  ``timer`` times each
+    BRT letter's fold selectors and bag draws, the NN's initial weights, the
+    SVM's sigest pairs and the RF's bootstrap rows and node feature draws.
+    ``nn_init`` injects the NN's weights instead: (w1, b1, w2, b2) with a
+    leading (response x fold) axis, response-major; ``svm_pairs`` the SVM's
+    sigest pairs (i, j), each (R*K, m), indices into the rows each lane fits
+    on; ``rf_draws`` the RF's (bootstrap counts (R*K, ntree, n), node
+    feature scores (R*K, ntree, 2^max_depth - 1, p)).  ``timer`` times each
     letter as phase ``cv_<letter>`` (synchronised, so a letter's seconds on
     a GPU are its own).
     """
-    require_ported(algorithms)
+    for name in algorithms:
+        if name not in PORTED_LETTERS:
+            raise ValueError(f"unknown algorithm {name!r}: the pool is {PORTED_LETTERS!r}")
     config = config or CVConfig()
     x = torch.as_tensor(x)
     y = torch.as_tensor(y, device=x.device)
@@ -134,6 +133,24 @@ def run_cv(
     if "m" in algorithms:
         with letter("m"):
             preds["m"] = mars.predict(mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x)
+    if "v" in algorithms:
+        with letter("v"):
+            if invert:
+                # each model trains on one ~n/k-row fold (V73:227-232): fit on
+                # its active rows, in order, padded with inactive rows (weight 0)
+                n_tr = int((flat_w > 0).sum(1).max())
+                idx = torch.argsort((flat_w <= 0).to(torch.int8), dim=1, stable=True)[:, :n_tr]
+                state = svm.fit(x[idx], flat_y.gather(1, idx), sample_weight=flat_w.gather(1, idx),
+                                pairs=svm_pairs, generator=generator, **config.svm)
+            else:
+                state = svm.fit(x, flat_y, sample_weight=flat_w, pairs=svm_pairs, generator=generator, **config.svm)
+            preds["v"] = svm.predict(state, x)
+    if "r" in algorithms:
+        with letter("r"):
+            # predictions at x from the growers' own node assignments
+            counts, scores = rf_draws if rf_draws is not None else (None, None)
+            preds["r"] = rf.fit(x, flat_y, sample_weight=flat_w, boot_counts=counts, scores=scores,
+                                generator=generator, **config.rf).train_pred
     if "b" in algorithms:
         with letter("b"):
             # every (response, outer fold) gbm.step run is one outer chain of

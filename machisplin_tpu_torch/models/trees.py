@@ -1,11 +1,13 @@
-"""Decision-tree infrastructure for the boosted trees (counterpart of
-``machisplin_tpu/models/trees.py``, the parts the gbm.step path runs).
+"""Decision-tree infrastructure for the boosted trees and the random forest
+(counterpart of ``machisplin_tpu/models/trees.py``, the parts the gbm.step
+and random-forest paths run).
 
 Features are binned into per-feature quantile histograms (64 bins), so a
 split search is a scan over (feature, bin) statistics; trees are stored as
 flat arrays (feat, thr, internal, left, right, value) with the best-first
 slot layout of gbm's ``interaction.depth`` split budget: J splits, children
-of the k-th split in slots 2k+1 and 2k+2.
+of the k-th split in slots 2k+1 and 2k+2.  ``grow_level_trees`` grows the
+random forest's CART trees level-wise in the heap layout instead.
 
 ``grow_bestfirst_trees_cumshared`` grows K trees at once from cumulative
 split statistics; it is the plain version of kernel K2
@@ -21,7 +23,8 @@ import torch
 
 __all__ = [
     "Tree", "make_bins", "bin_data", "flat_bin_cum_onehot", "edges_lookup",
-    "grow_bestfirst_trees_cumshared", "tree_assign", "forest_predict",
+    "grow_bestfirst_trees_cumshared", "grow_level_trees", "draw_mtry_scores", "assigned_predict",
+    "tree_assign", "forest_predict",
 ]
 
 
@@ -89,17 +92,20 @@ def _hist_cum(a, cum1h):
     return (hi.to(torch.float32) @ c + lo.to(torch.float32) @ c).to(a.dtype)
 
 
-def _best_splits_cum(clw, clwy, tw, twy, min_leaf):
+def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None):
     """Best (feature, bin) per row of (R, p, nb) cumulative stats with (R, 1, 1)
     totals: gbm's squared-error gain, candidates with at least ``min_leaf``
-    weight on both sides and a non-empty right side (b < nb - 1); the first
-    maximum in flattened (feature, bin) order wins a tie."""
+    weight on both sides and a non-empty right side (b < nb - 1), on the
+    features where ``feat_mask`` (R, p) is > 0 if given; the first maximum
+    in flattened (feature, bin) order wins a tie."""
     eps = 1e-12
     rw, rwy = tw - clw, twy - clwy
     gain = clwy * clwy / clw.clamp_min(eps) + rwy * rwy / rw.clamp_min(eps) - twy * twy / tw.clamp_min(eps)
     r, p, nb = gain.shape
     pos = torch.arange(nb, device=gain.device)
     ok = (clw >= min_leaf) & (rw >= min_leaf) & (pos < nb - 1)
+    if feat_mask is not None:
+        ok = ok & (feat_mask[:, :, None] > 0)
     flat = torch.where(ok, gain, torch.full((), -torch.inf, dtype=gain.dtype, device=gain.device))
     flat = flat.reshape(r, p * nb)
     best = torch.argmax(flat, dim=1)
@@ -206,6 +212,106 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
     if return_tree:
         return value, cur, (t_feat, t_thr, t_int, t_left, t_right, t_vg)
     return value, cur
+
+
+# (trees x 2 n_nodes x rows) weighted node one-hot values contracted at once
+# by grow_level_trees: bounds the deep levels' tables (~0.13 GB in float32)
+_LEVEL_ELEMS = 1 << 25
+
+
+def draw_mtry_scores(n_trees: int, max_depth: int, p: int, generator: torch.Generator | None = None):
+    """Uniform per-node feature scores for ``grow_level_trees``: (T,
+    2^max_depth - 1, p) float64, drawn on the CPU from ``generator``."""
+    return torch.rand((n_trees, 2**max_depth - 1, p), generator=generator, dtype=torch.float64)
+
+
+def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float = 5.0, mtry: int | None = None,
+                     scores=None, generator: torch.Generator | None = None, bin_cum1h=None):
+    """T CART regression trees grown level-wise to ``max_depth`` (heap
+    layout: node q's children are 2q + 1 and 2q + 2), randomForest's
+    semantics: SSE-decrease splits over a random ``mtry``-feature subset
+    per node, at least ``min_leaf`` weight on each side.
+
+    ``xb`` (n, p) bins shared by every tree (``edges`` (p, nb - 1)); ``ys``
+    (T, n) targets; ``ws`` (T, n) row weights (bootstrap counts, 0 out of
+    bag).  Split statistics come from ``_hist_cum`` against the cumulative
+    one-hot (the gbm histogram accuracy class); a node's totals are its
+    table's last bin; a node splits if its best gain exceeds 1e-9.  When
+    ``mtry`` < p, node q of tree t draws its features from ``scores[t, q]``
+    (T, 2^max_depth - 1, p) uniforms: the ``mtry`` largest (ties
+    included).  Leaf values are exact weighted means.
+
+    Returns (Tree of (T, 2^(max_depth+1) - 1) arrays, cur (T, n) the
+    terminal node of every training row)."""
+    n, p = xb.shape
+    n_trees = ys.shape[0]
+    nb = edges.shape[1] + 1
+    n_total = 2 ** (max_depth + 1) - 1
+    dtype, dev = ys.dtype, ys.device
+    if bin_cum1h is None:
+        bin_cum1h = flat_bin_cum_onehot(xb, nb)
+    use_mask = mtry is not None and mtry < p
+    if use_mask and scores is None:
+        scores = draw_mtry_scores(n_trees, max_depth, p, generator)
+    if use_mask:
+        scores = torch.as_tensor(scores, device=dev)
+    wys = ws * ys
+    xbt = xb.T
+    cols = torch.arange(n, device=dev)[None, :]
+    p_iota = torch.arange(p, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    feat = torch.zeros((n_trees, n_total), dtype=torch.int64, device=dev)
+    thr_bin = torch.zeros_like(feat)
+    internal = torch.zeros((n_trees, n_total), dtype=dtype, device=dev)
+    var_gain = torch.zeros((n_trees, p), dtype=dtype, device=dev)
+    cur = torch.zeros((n_trees, n), dtype=torch.int64, device=dev)
+
+    for level in range(max_depth):
+        offset, n_nodes = 2**level - 1, 2**level
+        nodes = torch.arange(n_nodes, device=dev)
+        chunk = max(1, _LEVEL_ELEMS // (2 * n_nodes * n))
+        for t0 in range(0, n_trees, chunk):
+            t1 = min(t0 + chunk, n_trees)
+            tc = t1 - t0
+            local = cur[t0:t1] - offset                              # valid iff in [0, n_nodes)
+            node1h = (local[:, None, :] == nodes[None, :, None]).to(dtype)           # (tc, N, n)
+            a = torch.cat([node1h * ws[t0:t1, None, :], node1h * wys[t0:t1, None, :]], dim=1)
+            h = _hist_cum(a.reshape(tc * 2 * n_nodes, n), bin_cum1h).reshape(tc, 2, n_nodes, p, nb)
+            chw = h[:, 0].reshape(tc * n_nodes, p, nb)
+            chwy = h[:, 1].reshape(tc * n_nodes, p, nb)
+            feat_mask = None
+            if use_mask:
+                sc = scores[t0:t1, offset : offset + n_nodes].reshape(tc * n_nodes, p)
+                kth = torch.sort(sc, dim=1).values[:, p - mtry]
+                feat_mask = (sc >= kth[:, None]).to(dtype)
+            gain, bfeat, bbin = _best_splits_cum(chw, chwy, chw[:, :1, -1:], chwy[:, :1, -1:], min_leaf, feat_mask)
+            gain, bfeat, bbin = (v.reshape(tc, n_nodes) for v in (gain, bfeat, bbin))
+            do_split = gain > 1e-9
+            feat[t0:t1, offset : offset + n_nodes] = torch.where(do_split, bfeat, 0)
+            thr_bin[t0:t1, offset : offset + n_nodes] = torch.where(do_split, bbin, 0)
+            internal[t0:t1, offset : offset + n_nodes] = do_split.to(dtype)
+            var_gain[t0:t1] += (torch.where(do_split, gain, zero)[:, :, None]
+                                * (bfeat[:, :, None] == p_iota).to(dtype)).sum(1)
+            # route the rows of split nodes to their children
+            in_level = (local >= 0) & (local < n_nodes)
+            lc = local.clamp(0, n_nodes - 1)
+            sample_bin = xbt[bfeat.gather(1, lc), cols]
+            child = 2 * cur[t0:t1] + 1 + (sample_bin > bbin.gather(1, lc)).long()
+            cur[t0:t1] = torch.where(in_level & do_split.gather(1, lc), child, cur[t0:t1])
+
+    sw = torch.zeros((n_trees, n_total), dtype=dtype, device=dev).scatter_add_(1, cur, ws)
+    swy = torch.zeros((n_trees, n_total), dtype=dtype, device=dev).scatter_add_(1, cur, wys)
+    value = swy / sw.clamp_min(1e-12)
+    heap = torch.arange(n_total, device=dev).expand(n_trees, n_total)
+    tree = Tree(feat=feat, thr=edges_lookup(edges, feat, thr_bin), internal=internal, left=2 * heap + 1,
+                right=2 * heap + 2, value=value, var_gain=var_gain)
+    return tree, cur
+
+
+def assigned_predict(value, cur) -> torch.Tensor:
+    """Leaf values of assigned nodes: ``value[t, cur[t, i]]`` for (T, N)
+    values and (T, n) node ids."""
+    return value.gather(1, cur)
 
 
 def tree_assign(trees: Tree, x, depth: int) -> torch.Tensor:

@@ -1,0 +1,114 @@
+"""The SVM's coordinate sweep: kernel K4 and its plain version.
+
+The counterpart of the sweep inside ``machisplin_tpu/models/svm.py::fit``
+(``svm.py:121-141``, a ``lax.scan`` of sweeps over a ``lax.fori_loop`` of
+coordinates).  Both versions solve every lane's SVR dual by cyclic
+soft-threshold coordinate descent on ``q + mu * 11'`` with the multiplier
+step ``lam += mu * sum(theta)`` after each sweep, with the reference's
+formula and order (``models/svm.py`` describes the method).
+
+``svm_sweep`` launches the CUDA kernel (``csrc/svm_sweep.cu``: one thread
+block runs one lane's whole fit) for CUDA tensors and runs
+``svm_sweep_plain`` for CPU tensors; there is no fallback between the two.
+``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["svm_sweep", "svm_sweep_cuda", "svm_sweep_plain", "max_rows", "LAUNCHES"]
+
+# kernel launches since the last reset: {"svm_sweep": n}
+LAUNCHES = {"svm_sweep": 0}
+
+_THREADS = 256
+_MAX_PER_THREAD = 32
+_SMEM = 232448           # an H100 block's shared memory: theta, w, ys and diag live there
+
+
+def max_rows(dtype: torch.dtype) -> int:
+    """The largest n the kernel takes in ``dtype``."""
+    return min(_MAX_PER_THREAD * _THREADS, _SMEM // (4 * torch.finfo(dtype).bits // 8))
+
+
+def svm_sweep_plain(q, ys, w, diag, *, c_reg: float = 1.0, epsilon: float = 0.1, mu: float = 1.0,
+                    epochs: int = 120):
+    """The sweep in plain PyTorch, vectorised over lanes: q (L, n, n), ys, w
+    and diag (L, n) -> (theta (L, n), lam (L,))."""
+    n_lanes, n = ys.shape
+    theta = torch.zeros_like(ys)
+    s = torch.zeros((n_lanes,), dtype=ys.dtype, device=ys.device)
+    lam = torch.zeros_like(s)
+    floor = torch.full((), 1e-12, dtype=ys.dtype, device=ys.device)
+    for _ in range(epochs):
+        for i in range(n):
+            wi, di, th = w[:, i], diag[:, i], theta[:, i]
+            r = (q[:, i, :] * theta).sum(-1) + mu * s * wi - di * th
+            z = (ys[:, i] - lam) * wi - r
+            cand = torch.sign(z) * (z.abs() - epsilon * wi).clamp_min(0.0)
+            cand = (cand / torch.maximum(di, floor)).clamp(-c_reg, c_reg) * wi
+            s = s + cand - th
+            theta[:, i] = cand
+        lam = lam + mu * s
+    return theta, lam
+
+
+def _launcher():
+    from ..kernels.build import load_library
+
+    lib = load_library("svm_sweep")
+    fn = lib.svm_sweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6                       # q, ys, w, diag, theta, lam
+        + [ctypes.c_int] * 3                        # lanes, n, epochs
+        + [ctypes.c_double] * 3                     # c_reg, eps, mu
+        + [ctypes.c_int, ctypes.c_void_p]           # is_double, stream
+    )
+    return fn
+
+
+def svm_sweep_cuda(q, ys, w, diag, *, c_reg: float = 1.0, epsilon: float = 0.1, mu: float = 1.0,
+                   epochs: int = 120):
+    """Launch K4 on the current stream: (theta (L, n), lam (L,)) in the
+    inputs' dtype.  Raises on a CPU tensor, a dtype other than float32 or
+    float64 (or mixed), a bad shape, n beyond the kernel's shared memory,
+    and on a launch error."""
+    dev, dtype = q.device, q.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"svm_sweep_cuda: float32 or float64 only, got {dtype}")
+    for name, a in (("q", q), ("ys", ys), ("w", w), ("diag", diag)):
+        if a.device.type != "cuda" or a.device != dev:
+            raise ValueError(f"svm_sweep_cuda: {name} must be on one CUDA device, got {a.device}")
+        if a.dtype != dtype:
+            raise TypeError(f"svm_sweep_cuda: {name} is {a.dtype}, q is {dtype}")
+    n_lanes, n = ys.shape
+    if q.shape != (n_lanes, n, n) or w.shape != (n_lanes, n) or diag.shape != (n_lanes, n):
+        raise ValueError(f"svm_sweep_cuda: bad shapes q {tuple(q.shape)} ys {tuple(ys.shape)} "
+                         f"w {tuple(w.shape)} diag {tuple(diag.shape)}")
+    if n > max_rows(dtype):
+        raise ValueError(f"svm_sweep_cuda: n = {n} rows exceed the kernel's {max_rows(dtype)} in {dtype}")
+    q, ys, w, diag = (a.contiguous() for a in (q, ys, w, diag))
+    theta = torch.empty((n_lanes, n), dtype=dtype, device=dev)
+    lam = torch.empty((n_lanes,), dtype=dtype, device=dev)
+    if n_lanes == 0:
+        return theta, lam
+    fn = _launcher()
+    err = fn(q.data_ptr(), ys.data_ptr(), w.data_ptr(), diag.data_ptr(), theta.data_ptr(), lam.data_ptr(),
+             n_lanes, n, epochs, float(c_reg), float(epsilon), float(mu), int(dtype == torch.float64),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"svm_sweep kernel launch failed: CUDA error {err}")
+    LAUNCHES["svm_sweep"] += 1
+    return theta, lam
+
+
+def svm_sweep(q, ys, w, diag, *, c_reg: float = 1.0, epsilon: float = 0.1, mu: float = 1.0, epochs: int = 120):
+    """Every lane's sweep: K4 for CUDA tensors, the plain version for CPU
+    tensors.  q (L, n, n), ys, w, diag (L, n) -> (theta (L, n), lam (L,))."""
+    kw = dict(c_reg=c_reg, epsilon=epsilon, mu=mu, epochs=epochs)
+    if q.device.type == "cuda":
+        return svm_sweep_cuda(q, ys, w, diag, **kw)
+    return svm_sweep_plain(q, ys, w, diag, **kw)

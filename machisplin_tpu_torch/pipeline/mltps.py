@@ -18,10 +18,11 @@ part 4  linear-ramp feathering of the tile seams (V73:756-896);
 part 5  final = ensemble + error surface, station R^2, and the keep-the-
         correction-only-if-R^2-improves rule (V73:898-965).
 
-The letters ported so far are BRT (``b``: batched gbm.step on kernel K2,
-and a merged-forest raster pass on kernel K3), GAM (``g``), NN (``n``: the
-batched L-BFGS of ``models/nn.py``) and MARS (``m``); any other letter in
-the pool raises NotImplementedError naming the slice that brings it.
+All six letters are ported: BRT (``b``: batched gbm.step on kernel K2, and a
+merged-forest raster pass on kernel K3), GAM (``g``), NN (``n``: the batched
+L-BFGS of ``models/nn.py``), MARS (``m``), RF (``r``: level-wise trees, and
+the same merged-forest raster pass on K3) and SVM (``v``: the coordinate
+sweep on kernel K4).
 """
 from __future__ import annotations
 
@@ -32,10 +33,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ensemble.cv import CVConfig, require_ported, residual_matrix, run_cv
+from ..ensemble.cv import CVConfig, residual_matrix, run_cv
 from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb
 from ..grid import GridSpec, Raster, crop, extract, lonlat_rasters, stack
-from ..models import gam, gbm_step, mars, nn
+from ..models import gam, gbm_step, mars, nn, rf, svm
 from ..models.base import LETTER_TO_NAME
 from ..models.trees import Tree
 from ..ops.feather import feather_blend
@@ -44,6 +45,7 @@ from ..ops.tps import TPSModel, tps_fit, tps_predict_grid
 from ..parallel.tiles import batched_tile_solve, pack_tiles
 from ..utils import resolve_device
 from ..utils.timing import PhaseTimer
+from .importance import breakdown_importance
 
 log = logging.getLogger("machisplin_tpu_torch")
 
@@ -61,8 +63,10 @@ class MLTPSConfig:
             step_size=50, max_trees=10000,
         )
     )
+    final_rf: dict = dataclasses.field(default_factory=lambda: dict(ntree=500))
     final_nn: dict = dataclasses.field(default_factory=lambda: dict(hidden=10, maxit=10000))
     final_mars: dict = dataclasses.field(default_factory=dict)
+    final_svm: dict = dataclasses.field(default_factory=dict)
     final_gam: dict = dataclasses.field(default_factory=dict)
     tps_tile_px: int = 1500          # V73:656-660
     tps_fit_overlap: float = 0.2     # V73:673
@@ -74,6 +78,7 @@ class MLTPSConfig:
     batch_final_brt: bool = True
     letters_pool: str | None = None  # restrict the algorithm pool (extension)
     predict_block_rows: int = 256
+    svm_importance_sample: int = 200  # V73:564
 
 
 @dataclasses.dataclass
@@ -141,11 +146,13 @@ def _prepare_inputs(int_values, covar_ras: Raster):
     return rast_stack, list(rast_stack.names), full[:, :2], x, responses
 
 
-def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=None, nn_init=None):
+def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=None, nn_init=None,
+                       svm_pairs=None):
     """Final-fit one algorithm for SEVERAL responses (ycols (n, R)) in one
     batched call.  Returns (predict_fn (m, p) -> (m, R), [importance dicts]).
     The NN's initial weights are drawn from ``generator``, or injected as
-    ``nn_init`` (w1, b1, w2, b2) with a leading response axis."""
+    ``nn_init`` (w1, b1, w2, b2) with a leading response axis; likewise the
+    SVM's sigest pairs, ``svm_pairs`` (i, j) each (R, m)."""
     n_resp = ycols.shape[1]
     y_b = ycols.T.contiguous()
     if letter == "n":
@@ -170,7 +177,15 @@ def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=N
             for j in range(n_resp)
         ]
         return fn, imps
-    require_ported(letter)
+    if letter == "v":
+        states = svm.fit(x, y_b, pairs=svm_pairs, generator=generator, **config.final_svm)
+        fn = lambda q: svm.predict(states, q).T
+        imps = [
+            breakdown_importance(lambda q, s=svm.lane(states, j): svm.predict(s, q), x, names,
+                                 n_sample=config.svm_importance_sample, seed=1313)
+            for j in range(n_resp)
+        ]
+        return fn, imps
     raise ValueError(letter)
 
 
@@ -213,6 +228,33 @@ def _final_brt_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig,
         bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=n_resp)
     bpt = torch.stack([r.final.train_fit for r in results], dim=1).to(x.dtype)
     return bsurf, bpt, imps
+
+
+def _final_rf_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generator, timer, rf_draws=None):
+    """RF final fits for one or more responses (ycols (n, R)): every
+    response's forest grows in one batched call, then ONE raster pass of all
+    forests merged into one leaf table with a (T_total, R) weight matrix of
+    1/T on each response's own trees (V73:517/521).  Station predictions
+    come through the same merged call.  ``rf_draws`` injects (bootstrap
+    counts (R, ntree, n), node scores (R, ntree, 2^max_depth - 1, p)).
+    Returns (surfaces (H, W, R), station predictions (n, R), [importance
+    dicts])."""
+    n_resp = ycols.shape[1]
+    counts, scores = rf_draws if rf_draws is not None else (None, None)
+    with timer.phase(f"final_fit_r_x{n_resp}"):
+        states = rf.fit(x, ycols.T.contiguous(), boot_counts=counts, scores=scores, generator=generator,
+                        **config.final_rf)
+    with timer.phase("importance_r"):
+        imps = [rf.importance(rf.lane(states, j), x, ycols[:, j], names) for j in range(n_resp)]
+    ntree = states.trees.feat.shape[1]
+    merged = Tree(*(a.reshape((n_resp * ntree,) + a.shape[2:]) for a in states.trees))
+    wmat = torch.kron(torch.eye(n_resp), torch.full((ntree, 1), 1.0 / ntree)).to(x.device)
+    with timer.phase("forest_tables_r"):
+        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1]), x.device)
+    rfn = lambda q: predict_prepared(ftab, q).to(q.dtype)
+    with timer.phase(f"raster_predict_r_x{n_resp}"):
+        rsurf = predict_over_stack(rfn, rast_stack, config.predict_block_rows, out_cols=n_resp)
+    return rsurf, rfn(x), imps
 
 
 def _tps_tiles(grid: GridSpec, config: MLTPSConfig):
@@ -320,8 +362,9 @@ def mltps(
 
     ``folds``: optional (R, n) CV fold ids in [0, k) for the n stations left
     after the NA drop; without them folds are drawn from ``generator``,
-    which also seeds gbm.step's fold selectors and bag draws and the NN's
-    initial weights.
+    which also seeds gbm.step's fold selectors and bag draws, the NN's
+    initial weights, the SVM's sigest pairs and the RF's bootstrap rows and
+    node feature draws.
     ``trouble``: the reference's BRT-only switch — every response keeps
     "b" at weight 1 whatever the weight search finds (V73:446).
     ``device``: where the run happens (``"cuda"`` raises without a GPU).
@@ -334,7 +377,6 @@ def mltps(
         letters_pool = "".join(l for l in letters_pool if l in config.letters_pool)
         if not letters_pool:
             raise ValueError(f"letters_pool {config.letters_pool!r} excludes every algorithm")
-    require_ported(letters_pool)
     if trouble and "b" not in letters_pool:
         raise ValueError("trouble=True fits BRT alone: the algorithm pool must include 'b'")
 
@@ -389,6 +431,8 @@ def mltps(
                     "which comes with a later slice of the port"
                 )
             bsurf, bpt, imps = _final_brt_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
+        elif letter == "r":
+            bsurf, bpt, imps = _final_rf_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
         else:
             with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
                 bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config, generator)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
-(tree grower, one tree and a 50-tree cycle per launch) and K3 (forest
-predictor); and the NN letter's L-BFGS on the card against the CPU.
+(tree grower, one tree and a 50-tree cycle per launch), K3 (forest
+predictor, also on a random forest in its slot loop) and K4 (the SVM's
+coordinate sweep); and the NN letter's L-BFGS on the card against the CPU.
 
 These tests need a CUDA device and nvcc; they skip without them.  They import
 nothing of JAX, so they also run where JAX is not installed:
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 from machisplin_tpu_torch import grid as tgrid
-from machisplin_tpu_torch.models import nn as tnn, trees as ttrees
-from machisplin_tpu_torch.ops import forest as ttforest, tps as ttps, tps_grid as ttg, tree_grow as ttgrow
+from machisplin_tpu_torch.models import nn as tnn, rf as trf, svm as tsvm, trees as ttrees
+from machisplin_tpu_torch.ops import (
+    forest as ttforest, svm_sweep as ttsvm, tps as ttps, tps_grid as ttg, tree_grow as ttgrow,
+)
 from test_torch_forest_tables import random_forest
 
 pytestmark = pytest.mark.gpu
@@ -306,3 +309,67 @@ def test_nn_lbfgs_graph_equals_eager(cuda, dtype):
     for a, b in zip(graph, eager):
         assert torch.equal(a, b)
     assert stats["syncs"] <= 10 and stats["capture_s"] > 0
+
+
+def _svm_lanes(dtype, device, lanes=5, n=300, p=5, seed=0):
+    """The sweep's operands for ``lanes`` CV-like lanes on random stations."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, p)) * np.array([1.0, 30.0, 2.0, 5.0, 0.5])
+    y = np.sin(x[:, 0]) + 0.02 * x[:, 1] + 0.1 * rng.normal(size=n)
+    w = (rng.uniform(size=(lanes, n)) > 0.1).astype(np.float64)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    pairs = tuple(a.to(device) for a in tsvm.draw_sigest_pairs(lanes, n, torch.Generator().manual_seed(seed)))
+    _, ys, q, diag = tsvm.sweep_inputs(t(x).expand(lanes, n, p), t(y).expand(lanes, n), t(w), pairs)
+    return q, ys, t(w), diag
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
+@pytest.mark.parametrize("n", [300, 813, 1100])     # one, four and five rows of q a thread
+def test_k4_matches_plain(cuda, dtype, tol, n):
+    """K4's theta and multiplier against the plain sweep's on the same
+    operands, of C (chip_smoke's SVM_TOL: the dot products are summed in
+    another order), 40 sweeps."""
+    q, ys, w, diag = _svm_lanes(dtype, cuda, n=n)
+    before = ttsvm.LAUNCHES["svm_sweep"]
+    theta, lam = ttsvm.svm_sweep_cuda(q, ys, w, diag, epochs=40)
+    torch.cuda.synchronize()
+    assert ttsvm.LAUNCHES["svm_sweep"] - before == 1
+    ptheta, plam = ttsvm.svm_sweep_plain(q, ys, w, diag, epochs=40)
+    assert float((theta - ptheta).abs().max()) <= tol and float((lam - plam).abs().max()) <= tol
+    assert bool((theta.abs() <= 1.0).all()) and bool((theta[w == 0] == 0).all())
+
+
+def test_k4_wrapper_checks_inputs(cuda):
+    q, ys, w, diag = _svm_lanes(torch.float32, cuda, lanes=2, n=64)
+    with pytest.raises(TypeError, match="float64"):
+        ttsvm.svm_sweep_cuda(q, ys.double(), w, diag)
+    with pytest.raises(ValueError, match="shapes"):
+        ttsvm.svm_sweep_cuda(q[:, :32], ys, w, diag)
+    big = torch.zeros((1, 8193), device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        ttsvm.svm_sweep_cuda(torch.zeros((1, 8193, 8193), device=cuda), big, big, big)
+    assert ttsvm.svm_sweep(q, ys, w, diag, epochs=3)[0].device.type == "cuda"
+
+
+def test_k3_on_a_random_forest_slot_loop(cuda):
+    """K3 on a small 2-response random forest (heap trees of depth 6, more
+    than S_MAX splits: every tree in the slot loop) against its plain
+    version and against the per-tree routing of rf.predict's trees."""
+    rng = np.random.default_rng(4)
+    n, p = 400, 5
+    x = torch.as_tensor(rng.uniform(size=(n, p)), dtype=torch.float32, device=cuda)
+    y = torch.stack([x[:, 0] + torch.sin(3 * x[:, 1]), x[:, 2] * x[:, 3]])
+    st = trf.fit(x, y, ntree=40, max_depth=6, generator=torch.Generator().manual_seed(1))
+    trees = ttrees.Tree(*(a.reshape((80,) + a.shape[2:]).cpu() for a in st.trees))
+    assert int(trees.internal.sum(1).min()) > ttforest.S_MAX
+    wmat = torch.kron(torch.eye(2), torch.full((40, 1), 1.0 / 40))
+    ft = ttforest.prepare_forest(trees, wmat, ttforest.build_leaf_bins(trees, n_feat=p), cuda)
+    assert ft.desc.shape[0] == 0 and ft.loop_slot.numel() > 0
+    cells = torch.rand((50_000, p), device=cuda) * 1.2 - 0.1
+    got = ttforest.forest_predict_cuda(ft, cells)
+    want = ttforest.forest_predict_plain(ft, cells)
+    assert bool(((got - want).abs() <= 1e-5 * ft.wv.abs().sum(0)).all())
+    batched = trf.predict(st, cells[:3000])                          # (2, m) through K3
+    for j in range(2):
+        routed = ttrees.forest_predict(ttrees.Tree(*(a[j] for a in st.trees)), cells[:3000], 6)
+        assert float((batched[j] - routed).abs().max()) <= 1e-5 * float(y[j].abs().max())

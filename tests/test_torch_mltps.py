@@ -67,6 +67,15 @@ def test_mltps_tps_kept_only_if_r2_improves(both_runs):
 
 
 def test_mltps_unported_pool_raises():
+    """The default pool is ported whole; what mltps still refuses is the
+    serial gbm.step final fit (BRT kept by a single response, or with
+    ``batch_final_brt=False``), which comes with a later slice."""
+    from machisplin_tpu_torch.ensemble.cv import CVConfig as TCVConfig
+
     cov = mtt.synthetic_covariates(downsample=48, device="cpu")
-    with pytest.raises(NotImplementedError, match="random-forest"):
-        mtt.mltps(mtt.load_sampling(), cov, device="cpu")
+    brt = dict(tree_complexity=2, learning_rate=0.1, bag_fraction=0.5, n_folds=3, step_size=10, max_trees=20,
+               n_bins=16)
+    cfg = TConfig(letters_pool="b", batch_final_brt=False, cv=TCVConfig(n_folds=3, brt=brt), final_brt=brt)
+    with pytest.raises(NotImplementedError, match="serial gbm.step"):
+        mtt.mltps(mtt.load_sampling(), cov, trouble=True, config=cfg, generator=torch.Generator().manual_seed(0),
+                  device="cpu")

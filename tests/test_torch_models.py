@@ -65,6 +65,11 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: convert.gam_state_from_numpy({"coef": np.zeros(3), "x_mean": np.zeros(2), "x_scale": np.ones(2)}),
         lambda: convert.nn_params_to_flat(np.zeros((2, 3)), np.zeros(3), np.zeros(3), np.zeros(())),
         lambda: convert.nn_state_from_jax({k: np.zeros(2) for k in ("w1", "b1", "w2", "b2", "x_mean", "x_scale")}),
+        lambda: convert.svm_state_from_jax({k: np.zeros(2) for k in (
+            "sv_x", "theta", "bias", "sigma", "x_mean", "x_scale", "y_mean", "y_scale")}),
+        lambda: convert.rf_state_from_jax({"trees": {k: np.zeros((1, 3)) for k in (
+            "feat", "thr", "internal", "left", "right", "value", "var_gain")}, "edges": np.zeros((2, 3)),
+            "max_depth": 1, "oob_count": np.zeros((1, 4)), "train_pred": np.zeros(4)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -196,11 +201,12 @@ def test_weight_keep_rule_matches_jax(rng):
 
 
 def test_unported_letters_raise():
+    """Every letter of the reference's pool is ported; a letter outside it
+    names no algorithm and raises before any fit."""
+    assert tcv.PORTED_LETTERS == jcv.residual_matrix.__defaults__[0] == "bgnmrv"
     x = torch.zeros((40, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="SVM"):
-        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="vg")
-    with pytest.raises(NotImplementedError, match="random-forest"):
-        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="nr")
+    with pytest.raises(ValueError, match="unknown algorithm 'x'"):
+        tcv.run_cv(x, torch.zeros(40, dtype=torch.float64), algorithms="vx")
 
 
 def _port_sources():
@@ -235,7 +241,9 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.kernels.build, machisplin_tpu_torch.ops.tps_grid, "
         "machisplin_tpu_torch.ops.tree_grow, machisplin_tpu_torch.ops.forest, "
         "machisplin_tpu_torch.models.gbm_step, machisplin_tpu_torch.models.brt, "
-        "machisplin_tpu_torch.optim.lbfgs, machisplin_tpu_torch.models.nn; "
+        "machisplin_tpu_torch.optim.lbfgs, machisplin_tpu_torch.models.nn, "
+        "machisplin_tpu_torch.ops.svm_sweep, machisplin_tpu_torch.models.svm, machisplin_tpu_torch.models.rf, "
+        "machisplin_tpu_torch.pipeline.importance; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
