@@ -60,11 +60,14 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   (``tools/record_jax_bn_r2.py``), the CV's seconds per letter, the NN
   finals and raster pass, and peak device memory;
 * ``kernel_svm``: the SVM's coordinate sweep K4 against its plain version
-  at the CV shape (20 (response x fold) lanes x 813 stations, 120 sweeps),
-  in float32 (theta and the multiplier within SVM_TOL["float32"] of C) and
-  float64 (SVM_TOL["float64"]), with CUDA-event ms a launch, ns a
+  at SVM_SHAPES: the CV shape (20 (response x fold) lanes x 813 stations,
+  120 sweeps) and the finals' (2 lanes x 813 x 120) in float32 (theta and
+  the multiplier within SVM_TOL["float32"] of C) and float64
+  (SVM_TOL["float64"]), and 20 lanes x 4096 seeded stations x 4 sweeps in
+  float32; per shape the first launch's and the warm CUDA-event ms, ns a
   coordinate step, the bound from bytes and operations and the plain
-  version's ms;
+  version's ms; ptxas's registers and spills, and the chain loop's
+  instructions a step from the SASS (``tools/sass_loop.py k4``);
 * ``mltps_main``: the north-star call, ``mltps(load_sampling(),
   synthetic_covariates(downsample=1), tps=True)`` with no ``letters_pool``
   (the six-letter pool "bgnmrv"), float32 as built, numpy-drawn folds:
@@ -180,6 +183,10 @@ JAX_REFERENCE_MAIN = {
 # grow by the step count: float32 ~1e-5, float64 ~1e-13.
 SVM_TOL = {"float32": 1e-3, "float64": 1e-9}
 SVM_EPOCHS = 120
+# K4's shapes, (lanes, stations, sweeps): the SVM's CV (20 (response x fold)
+# lanes), its finals (one lane a response), and 4096 stations at a few sweeps
+SVM_SHAPES = {"cv": (20, 813, SVM_EPOCHS), "finals": (2, 813, SVM_EPOCHS), "many": (20, 4096, 4)}
+SVM_RUNS = (("cv", "float32"), ("cv", "float64"), ("finals", "float32"), ("finals", "float64"), ("many", "float32"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_OPS = 67e12
@@ -1137,6 +1144,41 @@ def svm_cv_inputs(dtype: str):
     return q, ysn, w.contiguous(), diag
 
 
+def svm_inputs(shape: str, dtype: str):
+    """K4's operands and sweep count at one of SVM_SHAPES: "cv" as
+    ``svm_cv_inputs``; "finals" the stations with both responses and every
+    row weighted 1 (the SVM finals' two lanes); "many" 4096 stations made
+    from numpy's default_rng(4096) (p = 5, two smooth responses with noise)
+    in 20 CV lanes (folds from numpy_folds(4096, 10, 2, seed=0)).  Returns
+    (q, ys, w, diag, epochs)."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import svm
+
+    lanes, n, epochs = SVM_SHAPES[shape]
+    if shape == "cv":
+        return (*svm_cv_inputs(dtype), epochs)
+    dt = getattr(torch, dtype)
+    if shape == "finals":
+        x_np, ys = _stations()
+        y = torch.as_tensor(ys.T.copy(), dtype=dt, device="cuda")
+        w = torch.ones((lanes, n), dtype=dt, device="cuda")
+    else:
+        rng = np.random.default_rng(n)
+        x_np = rng.normal(size=(n, 5)) * np.array([1.0, 30.0, 2.0, 5.0, 0.5])
+        resp = np.stack([np.sin(x_np[:, 0]) + 0.02 * x_np[:, 1], np.cos(x_np[:, 2]) - 0.1 * x_np[:, 3]])
+        resp = resp + 0.1 * rng.normal(size=resp.shape)
+        folds = torch.as_tensor(numpy_folds(n, 10, 2, seed=0), device="cuda")
+        w = (folds[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).to(dt).reshape(lanes, n)
+        y = torch.as_tensor(resp, dtype=dt, device="cuda").repeat_interleave(10, dim=0)
+    x = torch.as_tensor(x_np, dtype=dt, device="cuda")
+    pairs = tuple(a.cuda() for a in svm.draw_sigest_pairs(lanes, n, torch.Generator().manual_seed(9)))
+    _, ysn, q, diag = svm.sweep_inputs(x.expand(lanes, n, x.shape[1]), y, w, pairs)
+    return q, ysn, w.contiguous(), diag, epochs
+
+
 def _event_ms(fn):
     """(fn's result, its CUDA-event ms), one run."""
     import torch
@@ -1149,46 +1191,63 @@ def _event_ms(fn):
     return out, a.elapsed_time(b)
 
 
+def _k4_sass_loop() -> dict:
+    """Instructions a coordinate step in K4's chain loop (float32), from its
+    SASS: ``tools/sass_loop.py k4``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("sass_loop", os.path.join("tools", "sass_loop.py"))
+    sl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sl)
+    name, instance, marker, per_step = sl.KERNELS["k4"]
+    src = os.path.join("machisplin_tpu_torch", "csrc", f"{name}.cu")
+    return sl.loop_counts(sl._sass(src, []), instance, marker, per_step, densest=True)
+
+
 def phase_kernel_svm():
-    """K4 against its plain version at the CV shape, float32 and float64:
-    theta and the multiplier within SVM_TOL of C; CUDA-event times and the
-    bound."""
+    """K4 against its plain version at SVM_SHAPES (the CV shape and the
+    finals' in float32 and float64, 4096 stations in float32): theta and
+    the multiplier within SVM_TOL of C; the first launch's and the warm
+    CUDA-event times, ns a coordinate step, the bound, ptxas's registers
+    and spills and the chain loop's instructions a step from the SASS."""
     import torch
 
     from machisplin_tpu_torch.ops import svm_sweep
 
     t0 = time.perf_counter()
     per, failures = {}, []
-    for dtype in ("float32", "float64"):
-        q, ys, w, diag = svm_cv_inputs(dtype)
+    for shape, dtype in SVM_RUNS:
+        q, ys, w, diag, epochs = svm_inputs(shape, dtype)
         lanes, n = ys.shape
-        (theta, lam), first_ms = _event_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=SVM_EPOCHS))
-        (ptheta, plam), plain_ms = _event_ms(lambda: svm_sweep.svm_sweep_plain(q, ys, w, diag, epochs=SVM_EPOCHS))
+        (theta, lam), first_ms = _event_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=epochs))
+        (ptheta, plam), plain_ms = _event_ms(lambda: svm_sweep.svm_sweep_plain(q, ys, w, diag, epochs=epochs))
         err = max(float((theta - ptheta).abs().max()), float((lam - plam).abs().max()))
-        ms = cuda_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=SVM_EPOCHS), reps=3)
+        ms = cuda_ms(lambda: svm_sweep.svm_sweep_cuda(q, ys, w, diag, epochs=epochs), reps=3)
         size = q.element_size()
         # each input read once (q, ys, w, diag), each output written once (theta, lam);
         # a coordinate step: the row's n multiply-adds and ~15 scalar operations
         nbytes = size * (lanes * n * n + 4 * lanes * n + lanes)
-        ops = lanes * SVM_EPOCHS * n * (2 * n + 15)
+        ops = lanes * epochs * n * (2 * n + 15)
         peak = PEAK_F32_OPS if dtype == "float32" else PEAK_F64_OPS
         t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        per[dtype] = {
-            "lanes": lanes, "stations": n, "epochs": SVM_EPOCHS, "max_abs_err": err, "tol": SVM_TOL[dtype],
+        key = f"{shape}_{dtype}"
+        per[key] = {
+            "lanes": lanes, "stations": n, "epochs": epochs, "max_abs_err": err, "tol": SVM_TOL[dtype],
             "finite": bool(torch.isfinite(theta).all() and torch.isfinite(lam).all()),
             "support_vectors_mean": float((theta.abs() > 1e-6).sum(1).float().mean()),
-            "ms": ms, "first_launch_ms": first_ms, "ns_per_step": ms * 1e6 / (SVM_EPOCHS * n),
+            "ms": ms, "first_launch_ms": first_ms, "ns_per_step": ms * 1e6 / (epochs * n),
             "plain_ms": plain_ms, "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
-        if not (per[dtype]["finite"] and err <= SVM_TOL[dtype]):
-            failures.append(f"K4 disagrees with its plain version in {dtype}: {err} > {SVM_TOL[dtype]}")
+        if not (per[key]["finite"] and err <= SVM_TOL[dtype]):
+            failures.append(f"K4 disagrees with its plain version at {key}: {err} > {SVM_TOL[dtype]}")
+        del q, ys, w, diag, theta, ptheta
     res = {"phase": "kernel_svm", "seconds": time.perf_counter() - t0, **per,
-           "ptxas": _ptxas_summary("svm_sweep")}
+           "ptxas": _ptxas_summary("svm_sweep"), "sass_chain_loop": _k4_sass_loop()}
     emit(res)
     if failures:
         raise RuntimeError("; ".join(failures))
-    return per["float32"]
+    return per["cv_float32"]
 
 
 def phase_mltps_main():

@@ -14,8 +14,10 @@ The solver is the JAX package's: the SVR dual in theta = alpha - alpha*,
 
 by cyclic soft-threshold coordinate descent on K + mu 11' with the
 multiplier step lam += mu sum(theta) after each of ``epochs`` sweeps; the
-sweep is kernel K4 on the card (``ops/svm_sweep.py``).  The bias comes from
-the free support vectors, with the multiplier as the fallback.
+sweep is kernel K4 on the card (``ops/svm_sweep.py``: a block a lane, one
+warp running the coordinates in order while the others sum each next
+chunk's residual q . theta from q).  The bias comes from the free support
+vectors, with the multiplier as the fallback.
 
 Models are batched over a leading lane axis, where the JAX package used
 ``vmap``: ``y`` and ``sample_weight`` are (n,) for one model or (L, n) for L

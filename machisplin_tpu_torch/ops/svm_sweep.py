@@ -8,8 +8,12 @@ step ``lam += mu * sum(theta)`` after each sweep, with the reference's
 formula and order (``models/svm.py`` describes the method).
 
 ``svm_sweep`` launches the CUDA kernel (``csrc/svm_sweep.cu``: one thread
-block runs one lane's whole fit) for CUDA tensors and runs
-``svm_sweep_plain`` for CPU tensors; there is no fallback between the two.
+block runs one lane's whole fit; its warp 0 runs the coordinates in chunks
+of 32 with the residual q . theta kept current inside a chunk, while the
+other warps sum each next chunk's residual afresh from q and theta) for
+CUDA tensors and runs ``svm_sweep_plain`` for CPU tensors; there is no
+fallback between the two.  The kernel reads q by symmetry (row k for
+column k), as the SVM letter builds it: exactly symmetric.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -23,14 +27,19 @@ __all__ = ["svm_sweep", "svm_sweep_cuda", "svm_sweep_plain", "max_rows", "LAUNCH
 # kernel launches since the last reset: {"svm_sweep": n}
 LAUNCHES = {"svm_sweep": 0}
 
-_THREADS = 256
-_MAX_PER_THREAD = 32
-_SMEM = 232448           # an H100 block's shared memory: theta, w, ys and diag live there
+_SMEM = 232448           # an H100 block's shared memory
+# the kernel's fixed shared memory (csrc/svm_sweep.cu): two stages (32
+# coordinates' 8 constants, two 32 x 32 blocks of q, 15 updater warps' 32
+# partial sums) in values, and 15 updater warps' row buffers of 8 KB
+_STAGE_VALUES = 2 * (32 * 8 + 2 * 32 * 32 + 15 * 32)
+_ROW_BUFFERS = 15 * 8192
 
 
 def max_rows(dtype: torch.dtype) -> int:
-    """The largest n the kernel takes in ``dtype``."""
-    return min(_MAX_PER_THREAD * _THREADS, _SMEM // (4 * torch.finfo(dtype).bits // 8))
+    """The largest n the kernel takes in ``dtype``: theta's 32 values and a
+    4-byte mask word per chunk of 32 rows beside its fixed shared memory."""
+    size = torch.finfo(dtype).bits // 8
+    return 32 * ((_SMEM - size * _STAGE_VALUES - _ROW_BUFFERS) // (32 * size + 4))
 
 
 def svm_sweep_plain(q, ys, w, diag, *, c_reg: float = 1.0, epsilon: float = 0.1, mu: float = 1.0,

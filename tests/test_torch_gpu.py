@@ -311,25 +311,27 @@ def test_nn_lbfgs_graph_equals_eager(cuda, dtype):
     assert stats["syncs"] <= 10 and stats["capture_s"] > 0
 
 
-def _svm_lanes(dtype, device, lanes=5, n=300, p=5, seed=0):
-    """The sweep's operands for ``lanes`` CV-like lanes on random stations."""
+def _svm_lanes(dtype, device, lanes=5, n=300, p=5, seed=0, edge=False):
+    """The sweep's operands for ``lanes`` CV-like lanes on random stations.
+    ``edge``: lane 0's responses scaled below epsilon = 0.1 (its theta never
+    leaves 0) and lane 1 weighted 0 on every tenth row."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, p)) * np.array([1.0, 30.0, 2.0, 5.0, 0.5])
     y = np.sin(x[:, 0]) + 0.02 * x[:, 1] + 0.1 * rng.normal(size=n)
     w = (rng.uniform(size=(lanes, n)) > 0.1).astype(np.float64)
+    if edge:
+        w[1] = 1.0
+        w[1, ::10] = 0.0
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     pairs = tuple(a.to(device) for a in tsvm.draw_sigest_pairs(lanes, n, torch.Generator().manual_seed(seed)))
     _, ys, q, diag = tsvm.sweep_inputs(t(x).expand(lanes, n, p), t(y).expand(lanes, n), t(w), pairs)
+    if edge:
+        ys = ys.clone()
+        ys[0] = ys[0] * (0.09 / ys[0].abs().max())
     return q, ys, t(w), diag
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
-@pytest.mark.parametrize("n", [300, 813, 1100])     # one, four and five rows of q a thread
-def test_k4_matches_plain(cuda, dtype, tol, n):
-    """K4's theta and multiplier against the plain sweep's on the same
-    operands, of C (chip_smoke's SVM_TOL: the dot products are summed in
-    another order), 40 sweeps."""
-    q, ys, w, diag = _svm_lanes(dtype, cuda, n=n)
+def _k4_vs_plain(q, ys, w, diag, tol):
     before = ttsvm.LAUNCHES["svm_sweep"]
     theta, lam = ttsvm.svm_sweep_cuda(q, ys, w, diag, epochs=40)
     torch.cuda.synchronize()
@@ -337,6 +339,27 @@ def test_k4_matches_plain(cuda, dtype, tol, n):
     ptheta, plam = ttsvm.svm_sweep_plain(q, ys, w, diag, epochs=40)
     assert float((theta - ptheta).abs().max()) <= tol and float((lam - plam).abs().max()) <= tol
     assert bool((theta.abs() <= 1.0).all()) and bool((theta[w == 0] == 0).all())
+    return theta
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
+@pytest.mark.parametrize("n", [300, 813, 1100])     # 10, 26 and 35 chunks of 32 rows, the last one ragged
+@pytest.mark.parametrize("lanes", [5, 1, 2])        # CV-like lanes; the finals' one or two responses
+def test_k4_matches_plain(cuda, dtype, tol, n, lanes):
+    """K4's theta and multiplier against the plain sweep's on the same
+    operands, of C (chip_smoke's SVM_TOL: the dot products are summed in
+    another order), 40 sweeps."""
+    _k4_vs_plain(*_svm_lanes(dtype, cuda, lanes=lanes, n=n), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
+def test_k4_edge_lanes(cuda, dtype, tol):
+    """A lane whose theta never leaves 0 (responses below epsilon) stays at
+    exactly 0, and a lane weighted 0 on every tenth row keeps those rows at
+    0, both within the tolerance of the plain sweep."""
+    q, ys, w, diag = _svm_lanes(dtype, cuda, lanes=4, n=813, edge=True)
+    theta = _k4_vs_plain(q, ys, w, diag, tol)
+    assert bool((theta[0] == 0).all()) and bool((theta[1, ::10] == 0).all()) and bool((theta[1] != 0).any())
 
 
 def test_k4_wrapper_checks_inputs(cuda):
@@ -345,9 +368,12 @@ def test_k4_wrapper_checks_inputs(cuda):
         ttsvm.svm_sweep_cuda(q, ys.double(), w, diag)
     with pytest.raises(ValueError, match="shapes"):
         ttsvm.svm_sweep_cuda(q[:, :32], ys, w, diag)
-    big = torch.zeros((1, 8193), device=cuda)
+    # one row beyond the kernel's shared memory (expanded views: the wrapper
+    # refuses them before it copies anything)
+    big = ttsvm.max_rows(torch.float32) + 1
+    row = torch.zeros((1, 1), device=cuda).expand(1, big)
     with pytest.raises(ValueError, match="exceed"):
-        ttsvm.svm_sweep_cuda(torch.zeros((1, 8193, 8193), device=cuda), big, big, big)
+        ttsvm.svm_sweep_cuda(torch.zeros((1, 1, 1), device=cuda).expand(1, big, big), row, row, row)
     assert ttsvm.svm_sweep(q, ys, w, diag, epochs=3)[0].device.type == "cuda"
 
 

@@ -102,7 +102,7 @@ def test_sweep_refuses_what_the_kernel_cannot_take():
         svm_sweep.svm_sweep_cuda(q, v, v, v)
     with pytest.raises(TypeError, match="float32 or float64"):
         svm_sweep.svm_sweep_cuda(q.half(), v.half(), v.half(), v.half())
-    assert svm_sweep.max_rows(torch.float64) == 7264 and svm_sweep.max_rows(torch.float32) == 8192
+    assert svm_sweep.max_rows(torch.float64) == 8000 and svm_sweep.max_rows(torch.float32) == 21152
 
 
 @pytest.mark.parametrize("invert_threshold", [4000, 50])     # 50: train on one fold (V73:227-232)

@@ -1,14 +1,17 @@
-"""Instructions a pair in the hot loop of kernel K1 or K3, read from its SASS.
+"""Instructions a pair in the hot loop of kernel K1, K3 or K4, read from its SASS.
 
     python3 tools/sass_loop.py k1 [--src machisplin_tpu_torch/csrc/tps_grid.cu] [-D K1_CELLS=2]
     python3 tools/sass_loop.py k3 [--src ...] [--sass file.sass]
+    python3 tools/sass_loop.py k4
 
 Compiles the source with the port's nvcc flags into an object file under
 ``build/sass_loop/``, disassembles it with ``cuobjdump -sass`` (or reads a
 listing given with ``--sass``), takes the main path's template instance (K1:
 R = 2; K3: W = 2 words, R = 2) and the innermost loop (a backward branch and
 its target) that holds the pair's marker instruction: FMNMX for K1, one a
-(cell, knot) pair; PRMT for K3, two a (cell, tree) pair.  Prints one JSON
+(cell, knot) pair; PRMT for K3, two a (cell, tree) pair.  For K4 (float32)
+the "pair" is a coordinate step and the loop is the one densest in FMNMX,
+four a step: the chain warp's loop over a chunk's steps.  Prints one JSON
 line: the loop's instructions, pairs an iteration, instructions a pair and
 each opcode's count a pair.  Compiling needs nvcc and cuobjdump; ``--sass``
 needs neither.
@@ -28,6 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {
     "k1": ("tps_grid", "tps_grid_kernelILi2E", "FMNMX", 1),
     "k3": ("forest_predict", "forest_kernelILi2ELi2E", "PRMT", 2),
+    "k4": ("svm_sweep", "svm_sweep_kernelIfE", "FMNMX", 4),
 }
 _INS = re.compile(r"/\*([0-9a-f]{4,6})\*/\s+(.*?)\s*;")
 
@@ -46,9 +50,9 @@ def _sass(src: str, defines: list) -> str:
     return subprocess.run([cuobjdump, "-sass", obj], check=True, capture_output=True, text=True).stdout
 
 
-def loop_counts(sass: str, instance: str, marker: str, per_pair: int) -> dict:
-    """The innermost loop of ``instance`` that holds ``marker``: its size and
-    its opcodes a pair."""
+def loop_counts(sass: str, instance: str, marker: str, per_pair: int, densest: bool = False) -> dict:
+    """The innermost loop of ``instance`` that holds ``marker`` (with
+    ``densest``, the loop densest in it): its size and its opcodes a pair."""
     text = next(f for f in re.split(r"\n\s*Function : ", sass)[1:] if instance in f.split("\n", 1)[0])
     ins = [(int(a, 16), op) for a, op in _INS.findall(text)]
     ops = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0] for _, op in ins]
@@ -57,9 +61,11 @@ def loop_counts(sass: str, instance: str, marker: str, per_pair: int) -> dict:
     loops = []
     for k, (a, op) in enumerate(ins):
         m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
-        if m and int(m.group(1), 16) < a and at.get(int(m.group(1), 16), k) <= first <= k:
-            loops.append((k - at[int(m.group(1), 16)], at[int(m.group(1), 16)], k + 1))
-    _, lo, hi = min(loops)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            lo = at[int(m.group(1), 16)]
+            if densest or lo <= first <= k:
+                loops.append((-ops[lo : k + 1].count(marker) / (k + 1 - lo) if densest else 0, k - lo, lo, k + 1))
+    *_, lo, hi = min(loops)
     body = collections.Counter(ops[lo:hi])
     pairs = body[marker] / per_pair
     return {"instructions": hi - lo, "pairs": pairs, "per_pair": (hi - lo) / pairs,
@@ -77,7 +83,7 @@ def main() -> int:
     src = args.src or os.path.join(ROOT, "machisplin_tpu_torch", "csrc", f"{name}.cu")
     sass = open(args.sass).read() if args.sass else _sass(src, args.defines)
     res = {"kernel": args.kernel, "source": args.sass or src, "defines": args.defines,
-           **loop_counts(sass, instance, marker, per_pair)}
+           **loop_counts(sass, instance, marker, per_pair, densest=args.kernel == "k4")}
     print(json.dumps(res), flush=True)
     return 0
 
