@@ -28,7 +28,15 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   chain's tree the same, or parting at a near-tie (relative gain gap <=
   1e-5), and f within 1e-5 of the residuals' scale where the trees agree;
   then a 50-tree cycle in one launch bit-identical to 50 one-tree launches,
-  and CUDA-event times per tree through the cycle entry;
+  and CUDA-event times per tree through the cycle entry; then four checks
+  beyond the batched BRT's shapes, each a 50-tree cycle against the plain
+  version with ms a tree, its bound and ptxas's registers and spills: bin
+  tables per chain (10 CV folds, each binned on its own training rows,
+  tree complexity 5), gbm's monotone check (the finals' shape with signs;
+  all-zero signs bit-identical to none), the rows in device memory forced
+  at the CV shape (bit-identical to shared memory), and station counts
+  whose rows do not fit shared memory (K2_CEILING: 200 chains x 8,000
+  seeded stations x p = 5 x tree complexity 25, 20 x 40,000 x 5);
 * ``mltps_b``: the slice's path, ``mltps(..., config=MLTPSConfig(
   letters_pool="b"))`` on the full grid (covariates as built, float32),
   counting every kernel's launches (K1 = 6, K2 and K3 > 0, K2 in 50-tree
@@ -77,7 +85,17 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   (``tools/record_jax_main_r2.py``), per-phase seconds with every CV
   letter apart, and peak device memory.  ``kernel_k3`` also holds K3 on a
   merged 2-response random forest of the default 500 trees a response
-  grown on the stations (every tree in the slot loop).
+  grown on the stations (every tree in the slot loop);
+* ``cv_b_8000``: ``run_cv(algorithms="b")`` on CV_B_STATIONS seeded
+  stations (beyond a block's shared memory), ``max_trees`` cut to
+  CV_B_MAX_TREES (printed): finite residuals for every station, K2
+  launched;
+* ``mltps_one``: the single-response north-star call, bio_1 alone with the
+  default pool at full size (float32, folds from numpy_folds(813, 10, 1,
+  seed=0)): a kept BRT's final through the serial gbm.step on K2 (its K2
+  launches counted), K1 = 6, K3 and K4 > 0 launches, finite surfaces, the
+  kept letters of the JAX keys, each r² within max(0.01, 3 x the keys'
+  spread) of their mean (``tools/record_jax_one_r2.py``).
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -134,6 +152,24 @@ K2_CYCLE = 50   # trees per K2 launch on the BRT path: gbm.step's step_size
 # another order (n eps ~ 5e-5), and f within K2_TOL
 K2_DEV_RTOL = 1e-4
 K3_TOL = 1e-5   # of sum |w v| per response
+# K2 at station counts whose rows do not fit a block's shared memory (the
+# parent's ceiling was ~6,050 stations at p = 5): (chains, seeded stations,
+# tree complexity)
+K2_CEILING = {"ceiling_8000": (200, 8000, 25), "ceiling_40000": (20, 40000, 5)}
+# The near-tie gap at those shapes.  TIE_GAP (1e-5) is below float32's
+# resolution there: at 200 chains x 8,000 stations x tc 25, 50 trees, the
+# plain version parts from itself with its rows permuted (the same function,
+# float32 sums in another order) in 34 chains, 12 of them at gaps above 1e-5,
+# up to 7.06e-5 (CPU run, PR 11), and K2 from the plain version in 36 chains,
+# 13 above 1e-5, up to 1.55e-4 (NVIDIA H100 80GB HBM3, 700.00 W, PR 11): a
+# deep node's gain is a small difference of large terms, so the sums' float32
+# noise reaches it amplified.  The checks there also print the plain
+# version's parting from itself and hold K2's parted chains to at most twice
+# its count plus 5.
+CEILING_TIE_GAP = 1e-3
+# CV letter b on seeded stations beyond that ceiling; max_trees cut from
+# 10,000 to keep the phase to seconds
+CV_B_STATIONS, CV_B_MAX_TREES = 8000, 1000
 
 # The JAX package's values for mltps over the BRT + NN pool ("bn"; covariates
 # as built, float32; folds from numpy_folds(813, 10, 2, seed=0)), PRNG keys
@@ -176,6 +212,19 @@ JAX_REFERENCE_MAIN = {
     "bio_12": {"kept": ["bn", "bn", "bn", "bn"],
                "r2_ensemble": [0.8648265456252783, 0.8660241190387852, 0.8642666644826565, 0.8669479996356637],
                "r2_final": [0.9352243489542087, 0.9333218733942671, 0.9380813708816351, 0.9343377943281279]},
+}
+# The JAX package's values for the single-response north-star call (bio_1
+# alone, the default pool; covariates as built, float32; folds from
+# numpy_folds(813, 10, 1, seed=0)), PRNG keys 0-3, from
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_one_r2.py --keys 0,1,2,3 1`
+# (CPU, 421-481 s a key on an 8-core CPU; every key keeps "bn", and its
+# serial gbm.step final grows all 10,000 trees).  Held as the north-star
+# call's values are: r² ensemble spread 0.0081 (band 0.0242), r² final
+# spread 0.0012 (band 0.01).
+JAX_REFERENCE_ONE = {
+    "bio_1": {"kept": ["bn", "bn", "bn", "bn"],
+              "r2_ensemble": [0.9372071484209508, 0.9390379442562601, 0.9376842014273643, 0.930968240690228],
+              "r2_final": [0.9954626966860011, 0.9951537584149973, 0.9959163844553077, 0.9963795426042209]},
 }
 # K4 against its plain version on the card, of C (= 1, the bound of |theta|):
 # the same steps with the dot products summed in another order.  One step's
@@ -399,39 +448,44 @@ def _ptxas_summary(name: str) -> list:
             if "registers" in ln or "spill" in ln]
 
 
-def _k2_work(xb, trees, nb, update_ops):
+def _k2_work(xb, trees, nb, update_ops, gain_ops=12):
     """Operations K2's function needs for these grown trees, (T, C, .)
-    arrays (feat, thr, internal, left): per tree of a chain, the root's
-    histogram (4 hi/lo adds per row and feature) and 12-operation gains over
-    the p * nb candidates; per split, the parent's rows' histograms (4 adds
-    per row and feature), two children's gains and one routing test per row;
+    arrays (feat, thr, internal, left), over (n, p) bins or (C, n, p) bins
+    of each chain: per tree of a chain, the root's histogram (4 hi/lo adds
+    per row and feature) and ``gain_ops``-operation gains over the p * nb
+    candidates (12; 17 with the monotone check's two divisions, difference,
+    product and test); per split, the parent's rows' histograms (4 adds per
+    row and feature), two children's gains and one routing test per row;
     ``update_ops`` per row for the update after the tree (and its deviance
     sums)."""
     import numpy as np
 
     from machisplin_tpu_torch.ops.tree_grow import split_sequence
 
-    n, p = xb.shape
+    n, p = xb.shape[-2:]
     feat, thr, internal, left = trees
     ops = 0
     for t in range(feat.shape[0]):
         for c in range(feat.shape[1]):
+            xbc = xb[c] if xb.ndim == 3 else xb
             cur = np.zeros(n, np.int64)
-            ops += 4 * n * p + 12 * p * nb + update_ops * n
+            ops += 4 * n * p + gain_ops * p * nb + update_ops * n
             for k, (q, f, b) in enumerate(split_sequence(feat[t, c], thr[t, c], internal[t, c], left[t, c])):
                 rows = cur == q
                 m = int(rows.sum())
-                ops += 4 * m * p + 2 * 12 * p * nb + m
-                cur[rows] = np.where(xb[rows, f] <= b, 2 * k + 1, 2 * k + 2)
+                ops += 4 * m * p + 2 * gain_ops * p * nb + m
+                cur[rows] = np.where(xbc[rows, f] <= b, 2 * k + 1, 2 * k + 2)
     return ops
 
 
-def _k2_cycle_bytes(n, p, nb, c, n_trees, n_splits, *, emit, scaled, deviance):
+def _k2_cycle_bytes(n, p, nb, c, n_trees, n_splits, *, emit, scaled, deviance, n_tables=1, order_bytes=2):
     """Bytes a cycle of ``n_trees`` trees must move, each input read once and
-    each output written once: the bins, sorted rows and bin offsets, y, f in
-    and out (and the deviance weights) once a cycle; each tree's bags (and
-    scale, tree arrays and deviance sums)."""
-    once = 3 * p * n + 4 * p * (nb + 1) + 3 * 4 * c * n + (2 * 4 * c * n if deviance else 0)
+    each output written once: the bins, sorted rows and bin offsets of each
+    of ``n_tables`` tables, y, f in and out (and the deviance weights and
+    monotone signs) once a cycle; each tree's bags (and scale, tree arrays
+    and deviance sums)."""
+    once = (n_tables * ((1 + order_bytes) * p * n + 4 * p * (nb + 1)) + 3 * 4 * c * n
+            + (2 * 4 * c * n if deviance else 0))
     per_tree = (4 * c * n + (4 * c if scaled else 0) + (4 * c * (6 * (2 * n_splits + 1) + p) if emit else 0)
                 + (2 * 4 * c if deviance else 0))
     return once + n_trees * per_tree
@@ -620,11 +674,250 @@ def phase_kernel_k2():
             "plain_ms": plain_ms / K2_CYCLE, "ops": ops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
+    res["extended"] = _k2_extended_checks(inp, failures)
     res["seconds"] = time.perf_counter() - t0
     emit(res)
     if failures:
         raise RuntimeError("; ".join(failures))
     return res
+
+
+def _ptxas_entries(name: str) -> dict:
+    """ptxas's registers and spills of each kernel entry in csrc/<name>.cu,
+    keyed by the entry's mangled name."""
+    from machisplin_tpu_torch.kernels import build
+
+    out, entry = {}, None
+    for ln in build.ptxas_info().get(name, "").splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif entry and ("registers" in ln or "spill" in ln):
+            out.setdefault(entry, []).append(ln.strip().split("ptxas info    : ")[-1])
+    return out
+
+
+def _k2_ptxas(rows_global: bool, order_bytes: int = 2) -> list:
+    """ptxas's lines of the K2 instance a layout launches
+    (tree_grow_kernel<GLOBAL_ROWS, OrderT>)."""
+    tag = "ILb0EsE" if not rows_global else ("ILb1EsE" if order_bytes == 2 else "ILb1EiE")
+    return [ln for entry, lines in _ptxas_entries("tree_grow").items() if tag in entry for ln in lines]
+
+
+def seeded_stations(n: int, seed: int = 0):
+    """``n`` stations at seeded places on the full grid (numpy's
+    default_rng(seed), uniform over the grid's extent, those on a cell with
+    every covariate kept): covariates alt, slope, TWI, LONG, LAT as the main
+    path extracts them (float32, as built) and a response like bio_1
+    (a lapse rate of 5.5 degrees a kilometre, a latitude trend and noise)."""
+    import numpy as np
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.pipeline.mltps import _prepare_inputs
+
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    xmin, xmax, ymin, ymax = cov.grid.extent
+    rng = np.random.default_rng(seed)
+    m = 2 * n
+    lon, lat = rng.uniform(xmin, xmax, m), rng.uniform(ymin, ymax, m)
+    table = np.rec.fromarrays([lon, lat, np.zeros(m)], names="long,lat,y")
+    _, _, coords, x_np, _ = _prepare_inputs(table, cov)
+    x_np = x_np[:n].astype(np.float32)
+    y = 28.0 - 0.0055 * x_np[:, 0] + 0.3 * (x_np[:, 4] - x_np[:, 4].mean()) + rng.normal(0, 0.5, len(x_np))
+    return x_np, y.astype(np.float32)
+
+
+def _k2_timed(tables, y, f, bags, kw, xb_np, plain_tables, *, gain_ops=12, n_tables=1, order_bytes=2, rows="auto"):
+    """CUDA-event ms a tree of K2 through one launch of the cycle ``bags``,
+    the plain version's ms a tree on the same cycle, and the bound of the
+    work these trees need (bytes and operations)."""
+    from machisplin_tpu_torch.ops import tree_grow
+
+    n_trees, c, n = bags.shape
+    p = xb_np.shape[-1]
+    grown = tree_grow.gbm_tree_cycle_cuda(tables, y, f, bags, **dict(kw, emit_tree=True), rows=rows)
+    ms = cuda_ms(lambda: tree_grow.gbm_tree_cycle_cuda(tables, y, f, bags, **kw, rows=rows), reps=5) / n_trees
+    plain_ms = cuda_ms(lambda: tree_grow.gbm_tree_cycle_plain(plain_tables, y, f, bags, **kw), reps=1) / n_trees
+    ops = _k2_work(xb_np, [a.cpu().numpy() for a in grown.trees[:4]], kw["nb"], 2, gain_ops) / n_trees
+    nbytes = _k2_cycle_bytes(n, p, kw["nb"], c, n_trees, kw["n_splits"], emit=False, scaled=False, deviance=False,
+                             n_tables=n_tables, order_bytes=order_bytes) / n_trees
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    splits = grown.trees[2].sum(-1).amax(1).mean().item()
+    return grown, {"ms": ms, "plain_ms": plain_ms, "ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "splits_per_tree": splits,
+                   "ms_per_dependent_pass": ms / (splits + 1)}
+
+
+def _k2_agree_check(name, agree, failures, tie_gap=TIE_GAP) -> dict:
+    bad = [g for g in agree["gaps"] if not g[2] <= tie_gap]
+    if bad:
+        failures.append(f"K2 {name}: trees part from the plain version away from a near-tie: {bad[:5]}")
+    if not agree["identical_chains"] > 0:
+        failures.append(f"K2 {name}: no chain's trees all agree with the plain version")
+    if not agree["max_abs_err"] <= K2_TOL * agree["resid_scale"]:
+        failures.append(f"K2 {name}: f differs by {agree['max_abs_err']} > {K2_TOL} * {agree['resid_scale']}")
+    return dict(agree, gaps=sorted(g[2] for g in agree["gaps"]))
+
+
+def _k2_extended_checks(inp, failures) -> dict:
+    """K2 beyond the batched BRT's shapes: bin tables per chain (the serial
+    gbm.step's 10 CV folds, each on its own training rows, tree complexity
+    5), gbm's monotone check (the finals' shape with signs), the rows in
+    device memory forced at the CV shape (bit-identical to shared memory),
+    and the station counts whose rows do not fit shared memory: 200 chains
+    x K2_CEILING stations x p = 5 x tree complexity 25, and 20 chains x
+    40,000 stations x tree complexity 5.  Each a K2_CYCLE-tree cycle against
+    the plain version, with ms a tree, its bound and ptxas's lines."""
+    import torch
+
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import trees as ttrees
+    from machisplin_tpu_torch.ops import tree_grow
+
+    out = {}
+    nb, min_leaf = inp["nb"], inp["min_leaf"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bag_draw = lambda shape, w: (torch.rand((K2_CYCLE,) + shape, generator=g, device="cuda") < 0.5).float() * w
+
+    # per-chain bins: 10 folds of the stations, each binned on its own training rows
+    x_np, ys = _stations()
+    x = torch.as_tensor(x_np, device="cuda")
+    n, p = x_np.shape
+    folds = torch.as_tensor(numpy_folds(n, 10, 1, seed=0)[0], device="cuda")
+    train = (folds[None, :] != torch.arange(10, device="cuda")[:, None]).float()
+    xb_k = torch.stack([ttrees.bin_data(x, e) for e in ttrees.make_bins_masked(x, train, nb)])
+    tables_k = tree_grow.prepare_bins(xb_k, nb)
+    plain_k = tables_k._replace(cum1h=ttrees.flat_bin_cum_onehot(xb_k, nb))
+    y = torch.as_tensor(ys[:, 0], dtype=torch.float32, device="cuda")[None].expand(10, n).contiguous()
+    f = ((train * y).sum(1) / train.sum(1))[:, None].expand(10, n).contiguous()
+    bags = bag_draw((10, n), train)
+    kw = dict(n_splits=5, nb=nb, min_leaf=min_leaf, lr=0.001)
+    grown, timed = _k2_timed(tables_k, y, f, bags, kw, xb_k.cpu().numpy(), plain_k, n_tables=10)
+    agree = tree_grow.cycle_agreement(xb_k, y, f, bags, grown, cum1h=plain_k.cum1h, **kw)
+    out["per_chain_bins"] = {"chains": 10, "stations": n, "n_splits": 5, **timed,
+                             "plain_cycle_check": _k2_agree_check("per-chain bins", agree, failures),
+                             "ptxas": _k2_ptxas(False)}
+
+    # monotone: the finals' shape with a sign on every covariate but LONG
+    fin = inp["shapes"]["finals"]
+    mono = torch.tensor([-1.0, 1.0, 1.0, 0.0, -1.0], device="cuda")
+    y, w = fin["y"], fin["w"]
+    c = y.shape[0]
+    f = ((w * y).sum(1) / w.sum(1))[:, None].expand(c, n).contiguous()
+    bags = bag_draw((c, n), w)
+    kw = dict(n_splits=5, nb=nb, min_leaf=min_leaf, lr=0.001, monotone=mono)
+    plain = inp["tables"]._replace(cum1h=ttrees.flat_bin_cum_onehot(inp["xb"], nb))
+    grown, timed = _k2_timed(inp["tables"], y, f, bags, kw, inp["xb"].cpu().numpy(), plain, gain_ops=17)
+    agree = tree_grow.cycle_agreement(inp["xb"], y, f, bags, grown, cum1h=plain.cum1h, **kw)
+    zero = tree_grow.gbm_tree_cycle_cuda(inp["tables"], y, f, bags, **dict(kw, monotone=torch.zeros_like(mono)),
+                                         emit_tree=True)
+    free = tree_grow.gbm_tree_cycle_cuda(inp["tables"], y, f, bags, **dict(kw, monotone=None), emit_tree=True)
+    zero_same = torch.equal(zero.f, free.f) and all(torch.equal(a, b) for a, b in zip(zero.trees, free.trees))
+    if not zero_same:
+        failures.append("K2: all-zero monotone signs differ from no monotone vector")
+    out["monotone"] = {"chains": c, "stations": n, "n_splits": 5, "signs": mono.tolist(), **timed,
+                       "zero_signs_bit_identical_to_none": zero_same,
+                       "plain_cycle_check": _k2_agree_check("monotone", agree, failures), "ptxas": _k2_ptxas(False)}
+
+    # the rows in device memory, forced at the CV shape: the same bits as shared memory
+    cv = inp["shapes"]["cv"]
+    y, w = cv["y"], cv["w"]
+    c = y.shape[0]
+    f = ((w * y).sum(1) / w.sum(1))[:, None].expand(c, n).contiguous()
+    bags = bag_draw((c, n), w)
+    kw = dict(n_splits=25, nb=nb, min_leaf=min_leaf, lr=0.01)
+    shared = tree_grow.gbm_tree_cycle_cuda(inp["tables"], y, f, bags, emit_tree=True, rows="shared", **kw)
+    glob = tree_grow.gbm_tree_cycle_cuda(inp["tables"], y, f, bags, emit_tree=True, rows="global", **kw)
+    same = torch.equal(shared.f, glob.f) and all(torch.equal(a, b) for a, b in zip(shared.trees, glob.trees))
+    if not same:
+        failures.append("K2: rows in device memory differ from rows in shared memory at the CV shape")
+    _, timed = _k2_timed(inp["tables"], y, f, bags, kw, inp["xb"].cpu().numpy(), plain, rows="global")
+    out["global_rows_cv_shape"] = {
+        "chains": c, "stations": n, "n_splits": 25, "bit_identical_to_shared": same, **timed,
+        "shared_ms": cuda_ms(lambda: tree_grow.gbm_tree_cycle_cuda(inp["tables"], y, f, bags, rows="shared", **kw),
+                             reps=5) / K2_CYCLE,
+        "smem_bytes": {"shared": tree_grow.smem_bytes(n, p, nb, 25), "global": tree_grow.smem_bytes(n, p, nb, 25, True)},
+        "ptxas": _k2_ptxas(True)}
+
+    # the station counts whose rows do not fit shared memory
+    for name, (c, n_st, n_splits) in K2_CEILING.items():
+        xs, yv = seeded_stations(n_st, seed=n_st)
+        xt = torch.as_tensor(xs, device="cuda")
+        xb = ttrees.bin_data(xt, ttrees.make_bins(xt, nb))
+        tables = tree_grow.prepare_bins(xb, nb)
+        order_bytes = tables.order.element_size()
+        folds = torch.as_tensor(numpy_folds(n_st, 10, 1, seed=0)[0], device="cuda")
+        w = (folds[None, :] != torch.arange(c, device="cuda")[:, None] % 10).float()
+        y = torch.as_tensor(yv, device="cuda")[None].expand(c, n_st).contiguous()
+        f = ((w * y).sum(1) / w.sum(1))[:, None].expand(c, n_st).contiguous()
+        bags = bag_draw((c, n_st), w)
+        kw = dict(n_splits=n_splits, nb=nb, min_leaf=min_leaf, lr=0.01)
+        plain = tables._replace(cum1h=ttrees.flat_bin_cum_onehot(xb, nb))
+        grown, timed = _k2_timed(tables, y, f, bags, kw, xb.cpu().numpy(), plain, order_bytes=order_bytes)
+        agree = tree_grow.cycle_agreement(xb, y, f, bags, grown, cum1h=plain.cum1h, **kw)
+        # the plain version against itself with the rows permuted (the same
+        # function, float32 sums in another order): its own resolution here
+        perm = torch.randperm(n_st, generator=torch.Generator().manual_seed(n_st)).cuda()
+        xbp = xb[perm]
+        selfp = tree_grow.gbm_tree_cycle_plain(
+            tables._replace(xbt=xbp.T.contiguous(), cum1h=ttrees.flat_bin_cum_onehot(xbp, nb)), y[:, perm].contiguous(),
+            f[:, perm].contiguous(), bags[:, :, perm].contiguous(), emit_tree=True, **kw)
+        self_agree = tree_grow.cycle_agreement(xb, y, f, bags, selfp._replace(f=selfp.f[:, torch.argsort(perm)]),
+                                               cum1h=plain.cum1h, **kw)
+        finite = bool(torch.isfinite(grown.f).all())
+        if not finite:
+            failures.append(f"K2 {name}: non-finite f")
+        parted, parted_self = c - agree["identical_chains"], c - self_agree["identical_chains"]
+        if not parted <= 2 * parted_self + 5:
+            failures.append(f"K2 {name}: trees part from the plain version in {parted} chains, the plain version "
+                            f"from itself with its rows permuted in {parted_self}")
+        out[name] = {"chains": c, "stations": n_st, "n_splits": n_splits, "order_bytes": order_bytes,
+                     "smem_bytes_shared_layout": tree_grow.smem_bytes(n_st, p, nb, n_splits),
+                     "smem_bytes": tree_grow.smem_bytes(n_st, p, nb, n_splits, True), "finite": finite, **timed,
+                     "tie_gap": CEILING_TIE_GAP,
+                     "plain_cycle_check": _k2_agree_check(name, agree, failures, CEILING_TIE_GAP),
+                     "plain_vs_itself_rows_permuted": dict(self_agree, gaps=sorted(g[2] for g in self_agree["gaps"])),
+                     "ptxas": _k2_ptxas(True, order_bytes)}
+    return out
+
+
+def phase_cv_b_8000():
+    """CV letter b on CV_B_STATIONS seeded stations (rows beyond a block's
+    shared memory), with max_trees cut to CV_B_MAX_TREES: finite residuals
+    of every station, K2 launched."""
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.cv import CVConfig, run_cv
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.ops import tree_grow
+
+    t0 = time.perf_counter()
+    x_np, y = seeded_stations(CV_B_STATIONS, seed=CV_B_STATIONS)
+    n = len(y)
+    brt = dict(CVConfig().brt, max_trees=CV_B_MAX_TREES)
+    timer = mtt.PhaseTimer()
+    _reset_launches()
+    t1 = time.perf_counter()
+    res = run_cv(torch.as_tensor(x_np, device="cuda"), torch.as_tensor(y, device="cuda"), config=CVConfig(brt=brt),
+                 algorithms="b", folds=numpy_folds(n, 10, 1, seed=0), generator=torch.Generator().manual_seed(0),
+                 timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _read_launches()
+    resid = res["b"]
+    finite = bool(np.isfinite(resid).all())
+    out = {"phase": "cv_b_8000", "seconds": time.perf_counter() - t0, "stations": n, "features": int(x_np.shape[1]),
+           "max_trees": brt["max_trees"], "max_trees_cut_from": CVConfig().brt["max_trees"], "cv_b_s": wall,
+           "residuals": int(resid.shape[0]), "finite": finite, "resid_rms": float(np.sqrt(np.mean(resid**2))),
+           "y_sd": float(np.std(y)), "launches": {k: launches[k] for k in tree_grow.LAUNCHES},
+           "smem_bytes_shared_layout": tree_grow.smem_bytes(n, int(x_np.shape[1]), 64, brt["tree_complexity"])}
+    emit(out)
+    if not finite or resid.shape[0] != 9 * n:
+        raise RuntimeError(f"cv_b_8000: residuals not finite or not {9 * n} of them ({resid.shape[0]})")
+    if launches["tree_grow"] <= 0:
+        raise RuntimeError("cv_b_8000: K2 did not launch")
+    return out
 
 
 def phase_mltps_b(captured: dict):
@@ -1311,6 +1604,94 @@ def phase_mltps_main():
     return launches
 
 
+def phase_mltps_one():
+    """The single-response north-star call: mltps over bio_1 alone with the
+    default pool at full size, float32; a kept BRT takes the serial gbm.step
+    (``gbm_step.fit``) for its final fit."""
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import gbm_step
+    from machisplin_tpu_torch.ops import tree_grow
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    one = np.rec.fromarrays([s["long"], s["lat"], s["bio_1"]], names="long,lat,bio_1")
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 1, seed=0)
+    t_setup = time.perf_counter() - t0
+
+    # observe (without changing) the serial final: its K2 launches and result
+    serial = gbm_step.fit
+    seen = {}
+
+    def fit_seen(*a, **kw):
+        before = dict(tree_grow.LAUNCHES)
+        res = serial(*a, **kw)
+        torch.cuda.synchronize()
+        seen["k2"] = {k: tree_grow.LAUNCHES[k] - before[k] for k in before}
+        seen["final"] = {"best_trees": res.best_trees, "trees_fitted": res.trees_fitted, "restarts": res.restarts,
+                         "learning_rate": res.learning_rate, "cv_deviance_min": float(res.cv_deviance.min())}
+        return res
+
+    gbm_step.fit = fit_seen
+    timer = mtt.PhaseTimer()
+    try:
+        _reset_launches()
+        t1 = time.perf_counter()
+        out = mtt.mltps(one, cov, tps=True, folds=folds, generator=torch.Generator().manual_seed(0), device="cuda",
+                        timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _read_launches()
+    finally:
+        gbm_step.fit = serial
+
+    mask = torch.isfinite(cov.data).all(0)
+    layers, failures = {}, []
+    for r in out:
+        for attr in ("final", "ensemble", "tps_surface"):
+            d = getattr(r, attr).data
+            if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
+                failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
+        got = {"kept": r.summary["best model(s):"], "percent": r.summary["ensemble weights:"],
+               "weights": [float(v) for v in r.weights.weights],
+               "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"]}
+        layers[r.name] = got
+        kept_jax = set(JAX_REFERENCE_ONE[r.name]["kept"])
+        if got["kept"] not in kept_jax:
+            failures.append(f"{r.name} kept {got['kept']!r}, the JAX keys keep {sorted(kept_jax)}")
+        for key in ("r2_ensemble", "r2_final"):
+            mean, tol = _bn_band(r.name, key, JAX_REFERENCE_ONE)
+            got[key + "_band"] = [mean, tol]
+            if not abs(got[key] - mean) <= tol:
+                failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {mean} +- {tol}")
+    phases = timer.as_dict()
+    emit({
+        "phase": "mltps_one", "seconds": time.perf_counter() - t0, "setup_s": t_setup, "mltps_wall_s": wall,
+        "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": phases,
+        "cv_letter_s": {k[3:]: v for k, v in phases.items() if k.startswith("cv_") and len(k) == 4},
+        "launches": launches, "serial_final_k2": seen.get("k2"), "serial_final": seen.get("final"),
+        "layers": layers, "jax_reference": JAX_REFERENCE_ONE, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if [r.name for r in out] != ["bio_1"]:
+        failures.append(f"mltps_one returned {[r.name for r in out]}")
+    if launches["tps_grid"] != 6:
+        failures.append(f"K1 launched {launches['tps_grid']} times on the single-response path, expected 6")
+    for name in ("tree_grow", "forest_predict", "svm_sweep"):
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} did not run on the single-response path: {launches}")
+    if "b" in layers["bio_1"]["kept"] and not (seen.get("k2") or {}).get("tree_grow", 0) > 0:
+        failures.append(f"the serial gbm.step final did not launch K2: {seen.get('k2')}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -1335,6 +1716,8 @@ def main() -> int:
     phase_mltps_bn()
     k4 = phase_kernel_svm()
     launches = phase_mltps_main()
+    phase_cv_b_8000()
+    phase_mltps_one()
     k2cv = k2["shapes"]["cv"]
     # no single PyTorch call grows a tree, evaluates a forest or runs a
     # coordinate sweep: library_ms null.

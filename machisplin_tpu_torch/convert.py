@@ -81,15 +81,25 @@ def brt_state_from_numpy(d, dtype=torch.float32, device="cuda") -> BRTState:
 
 
 def gbm_result_from_numpy(d, dtype=torch.float32, device="cuda") -> GBMStepResult:
-    """GBMStepResult from the JAX ``GBMStepResult`` fields; the CV curves
-    come along as tensors, the statistics fields as they are."""
+    """GBMStepResult from the JAX ``GBMStepResult`` fields: the CV curves
+    (and the training-deviance curve, where filled) as tensors, the
+    statistics fields (fitted values, residuals, their variances, the
+    held-out fits and the two statistics blocks) as numpy, as the port's
+    ``fit`` returns them."""
     f = _fields(d)
     out = dict(f)
     out["final"] = brt_state_from_numpy(f["final"], dtype, device)
     out["best_trees"] = int(np.asarray(f["best_trees"]))
     out["trees_fitted"] = int(np.asarray(f["trees_fitted"]))
-    for k in ("cv_deviance", "cv_deviance_se"):
-        out[k] = _t(f[k], dtype, device)
+    for k in ("cv_deviance", "cv_deviance_se", "training_deviance"):
+        if out.get(k) is not None:
+            out[k] = _t(f[k], dtype, device)
+    for k in ("selector", "fitted", "residuals", "fitted_vars", "fold_fit"):
+        if out.get(k) is not None:
+            out[k] = np.asarray(f[k])
+    for k in ("self_statistics", "cv_statistics"):
+        if out.get(k) is not None:
+            out[k] = {name: np.asarray(v) if np.ndim(v) else float(v) for name, v in f[k].items()}
     return GBMStepResult(**{k: out[k] for k in GBMStepResult._fields if k in out})
 
 

@@ -72,7 +72,7 @@ def _nn_y_transform(y, train_w):
 
 
 def run_cv(
-    x, y, *, config: CVConfig | None = None, algorithms: str = "gm",
+    x, y, *, config: CVConfig | None = None, algorithms: str = "bgnmrv",
     folds=None, generator: torch.Generator | None = None, nn_init=None,
     svm_pairs=None, rf_draws=None, timer: PhaseTimer | None = None,
 ) -> dict[str, np.ndarray]:
@@ -173,6 +173,6 @@ def run_cv(
     return out
 
 
-def residual_matrix(cv_out: dict[str, np.ndarray], letters: str = "gm") -> np.ndarray:
+def residual_matrix(cv_out: dict[str, np.ndarray], letters: str = "bgnmrv") -> np.ndarray:
     """(A, n_concat) matrix in canonical letter order for the weight search."""
     return np.stack([cv_out[letter] for letter in letters])

@@ -1,12 +1,11 @@
-"""gbm.step — CV-based selection of the boosted-tree count, batched over
-chains (counterpart of ``machisplin_tpu/models/gbm_step.py``, its
-global-bins gaussian path).
+"""gbm.step: CV-based selection of the boosted-tree count (counterpart of
+``machisplin_tpu/models/gbm_step.py``).
 
 The selection rules are those of the vendored Elith/Leathwick gbm.step
 (machisplin.gbm.step, V73:1660-2239):
 
 * k-fold selector: rep(1..n_folds) over the rows, randomly shuffled
-  (V73:1749-1751);
+  (V73:1749-1751), prevalence-stratified for bernoulli (V73:1736-1748);
 * boosting grown in ``step_size``-tree cycles, recording the mean holdout
   deviance of the fold models at each checkpoint (V73:1884-1967);
 * the "restart with a smaller learning rate" rule when holdout deviance
@@ -15,22 +14,32 @@ The selection rules are those of the vendored Elith/Leathwick gbm.step
   overlapping 11 before them by no more than ``tolerance`` (auto = 0.001 x
   the mean total deviance, V73:1957-1961), or at ``max_trees``;
 * best.trees = the first checkpoint at the minimum (V73:1978-1983), then a
-  refit on the training rows with best.trees trees (V73:2100-2124).
+  refit on the training rows with best.trees trees (V73:2100-2124), and the
+  CV and self statistics blocks (V73:2014-2096, 2115-2152).
 
-Every chain — (outer fold, inner fold) pairs in the CV, (response, inner
-fold) pairs in the finals — grows on ONE table of full-data quantile bins,
-so one launch of kernel K2 (``ops/tree_grow.gbm_tree_cycle``) advances all
-of them by a cycle of ``step_size`` trees, as the JAX package's cycle
-program does.  Chains are float32, as K2's are.
+Two drivers, both on kernel K2 (``ops/tree_grow.gbm_tree_cycle``):
 
-Randomness can be injected: ``selectors=`` fixes the fold memberships and
-``bags=`` the bag draws (the JAX package's threefry streams cannot be drawn
-in torch; the parity tests rebuild them and pass them in).  Otherwise both
-come from a ``torch.Generator``.
+* ``fit``, the serial gbm.step of one response: families gaussian /
+  laplace / poisson / bernoulli, ``offset``, ``fold_vector`` and
+  ``var_monotone``.  Its K fold models are K2 chains, each on a bin table
+  of its own training rows (the reference's per-fold ``gbm::gbm`` calls);
+  gaussian chains grow a cycle of ``step_size`` trees a launch, other
+  families one tree a launch with their leaves re-estimated.  The final
+  model is ``brt.fit`` on full-data bins.
+* the batched ones, ``fit_outer_batched`` (run_cv's letter b) and
+  ``fit_multi`` (mltps's finals for several responses), gaussian: every
+  chain (outer fold x inner fold, or response x inner fold) grows on ONE
+  table of full-data quantile bins, so one launch advances all of them by a
+  cycle, as the JAX package's cycle program does.
 
-Not ported yet (NotImplementedError names the later slice): the serial
-``fit`` with families, deviance, offset and monotone constraints; the
-shared- and per-fold-bins branches; ``statistics=True``.
+Chains are float32, as K2's are.  Randomness can be injected: ``selector=``
+/ ``selectors=`` fix the fold memberships and ``bags=`` the bag draws (the
+JAX package's threefry streams cannot be drawn in torch; the parity tests
+rebuild them and pass them in).  Otherwise both come from a
+``torch.Generator``.
+
+Not ported yet (NotImplementedError names the later slice): the shared- and
+per-fold-bins branches of the batched drivers (``global_bins=False``).
 """
 from __future__ import annotations
 
@@ -42,21 +51,17 @@ import torch
 
 from ..ops.tree_grow import gbm_tree_cycle, prepare_bins
 from . import brt
-from .trees import Tree, bin_data, edges_lookup, make_bins
+from .brt import STEP_SIZE, _random_bags, _seed, _stack_bags, family_tree
+from .deviance import calc_deviance
+from .families import check_family, f0_init, response
+from .trees import Tree, bin_data, edges_lookup, make_bins, make_bins_masked
 
 __all__ = [
     "GBMStepResult", "MultiCurve", "stopping_fired", "best_trees_from_curve",
     "fit_outer_batched", "fit_multi", "fit", "predict", "importance",
 ]
 
-_LATER_SERIAL = (
-    "the serial gbm.step fit (families, deviance, offset, monotone constraints) "
-    "comes with a later slice of the port"
-)
 _LATER_BINS = "only global_bins=True is ported; the shared and per-fold bins branches come with a later slice"
-
-# gbm.step's trees per cycle (its step.size): one K2 launch each
-STEP_SIZE = 50
 
 
 class GBMStepResult(NamedTuple):
@@ -69,13 +74,14 @@ class GBMStepResult(NamedTuple):
     learning_rate: float | None = None   # rate actually used (after restarts)
     restarts: int = 0                    # automated lr/2 restarts (V73:1948-1955)
     selector: np.ndarray | None = None   # (n,) fold membership (keep.fold.vector)
-    training_deviance: Any = None        # the CV/self statistics fields of the
-    fitted: Any = None                   # JAX package's result; filled only by
-    residuals: Any = None                # its statistics=True path, which is
-    fitted_vars: Any = None              # not ported yet
-    fold_fit: Any = None
-    self_statistics: Any = None
-    cv_statistics: Any = None
+    training_deviance: Any = None        # (max_checkpoints,) mean train deviance
+    fitted: Any = None                   # (n,) final-model fitted values (response scale)
+    residuals: Any = None                # (n,) family-correct residuals (V73:2134-2151)
+    fitted_vars: Any = None              # (n,) between-fold variance of fitted values
+    fold_fit: Any = None                 # (n,) held-out linear predictor at best.trees
+    self_statistics: Any = None          # V73:2190-2192
+    cv_statistics: Any = None            # V73:2194-2197
+    # fit and fit_multi(statistics=True) fill the last seven
 
 
 class MultiCurve(NamedTuple):
@@ -83,6 +89,8 @@ class MultiCurve(NamedTuple):
     dev: np.ndarray               # (max_cp, F, K) holdout deviance (inf pad), float64
     edges: torch.Tensor           # (p, nb - 1) global bin edges
     xb: torch.Tensor              # (n, p) binned data
+    tdev: np.ndarray | None = None   # with keep_fhist: (cycles, F, K) train deviance, float32
+    fhist: np.ndarray | None = None  # with keep_fhist: (cycles, F, K, n) link-scale fits, float32
 
 
 def stopping_fired(mean_curve, tolerance, win: int = 10):
@@ -107,15 +115,11 @@ def best_trees_from_curve(mean_curve, stopped, step_size: int) -> int:
     return (int(np.argmin(np.asarray(mean_curve)[:j_f])) + 1) * step_size
 
 
-def _seed(generator: torch.Generator | None) -> int:
-    return int(torch.randint(0, 2**62, (1,), generator=generator))
-
-
-def _make_selector(generator, y, w, n_folds):
+def _make_selector(generator, y, w, n_folds, *, family="gaussian", prev_stratify=True):
     """Fold membership, host-side: rep(0..k-1) shuffled over the active rows
-    (V73:1749-1751), then over the inactive ones (gaussian: no
-    prevalence stratification).  The shuffle is numpy's, seeded from
-    ``generator``."""
+    (V73:1749-1751), within the presence and the absence rows apart for
+    bernoulli (prevalence stratification, V73:1736-1748), then over the
+    inactive ones.  The shuffle is numpy's, seeded from ``generator``."""
     y = np.asarray(y)
     w = np.asarray(w)
     rng = np.random.default_rng(_seed(generator))
@@ -127,7 +131,11 @@ def _make_selector(generator, y, w, n_folds):
             selector[mask] = (np.arange(m) % n_folds).astype(np.int32)[rng.permutation(m)]
 
     active = w > 0
-    assign(active)
+    if prev_stratify and family == "bernoulli":
+        assign(active & (y == 1))
+        assign(active & (y == 0))
+    else:
+        assign(active)
     assign(~active)
     return selector
 
@@ -144,24 +152,6 @@ def _draw_selectors(generator, w_outer, n_folds):
     return torch.zeros((f_outer, n), dtype=torch.int64, device=w_outer.device).scatter_(1, order, seq)
 
 
-def _random_bags(generator, bag_fraction: float, shape, device, block: int):
-    """The default ``bags``: tree t's 0/1 bag mask of ``shape``, drawn
-    ``block`` trees at a time on ``device`` from a generator seeded by
-    ``generator``.  Trees are asked for in order."""
-    g = torch.Generator(device=device)
-    g.manual_seed(_seed(generator))
-    state = {"t0": None, "draw": None}
-
-    def bags(t: int) -> torch.Tensor:
-        t0 = t - t % block
-        if state["t0"] != t0:
-            state["t0"] = t0
-            state["draw"] = torch.rand((block,) + tuple(shape), generator=g, device=device) < bag_fraction
-        return state["draw"][t - t0]
-
-    return bags
-
-
 def _grow_inputs(x, n_bins):
     """Global bins and K2's inputs made from them (``prepare_bins``)."""
     edges = make_bins(x, n_bins)                              # (p, nb - 1)
@@ -169,18 +159,10 @@ def _grow_inputs(x, n_bins):
     return edges, xb, prepare_bins(xb, n_bins)
 
 
-def _stack_bags(bags, t0: int, count: int, shape, device, weights) -> torch.Tensor:
-    """(count, C, n) row weights of trees t0 .. t0 + count - 1: each tree's
-    bag draw ``bags(t)`` as float32 times ``weights``."""
-    draws = torch.stack([torch.as_tensor(bags(t0 + i), device=device).reshape(shape).to(torch.float32)
-                         for i in range(count)])
-    return draws * weights
-
-
 def _cv_deviance_curve_multi(
     x, y, w_outer, *, n_folds, n_splits, lr, bag_fraction, min_leaf, step_size, max_trees,
     tolerance, n_bins, selectors=None, global_bins=True, bags: Callable | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, keep_fhist: bool = False,
 ) -> MultiCurve:
     """All OUTER chains' gbm.step CV curves, batched: F x K boosting chains
     advance one K2 launch per ``step_size``-tree cycle, with the
@@ -190,7 +172,9 @@ def _cv_deviance_curve_multi(
     w_outer (F, n) training masks; ``y`` (n,) or (F, n); ``selectors``
     (F, n) inner-fold ids (drawn from ``generator`` when None); ``bags(t)``
     the (F, K, n) or (F * K, n) 0/1 bag draw of tree t (t counts from 0
-    over the whole curve), multiplied by the inner training masks."""
+    over the whole curve), multiplied by the inner training masks.
+    ``keep_fhist``: also the train deviances and link-scale fits at every
+    checkpoint (the CV statistics' inputs)."""
     if not global_bins:
         raise NotImplementedError(_LATER_BINS)
     x = torch.as_tensor(x)
@@ -226,16 +210,21 @@ def _cv_deviance_curve_multi(
     dev = np.full((max_cp, f_outer, n_folds), np.inf, np.float64)
     stopped = np.full((f_outer,), max_cp + 1, np.int64)
     j = t = 0
+    tdev, fhist = [], []
     while j < max_cp and np.any(stopped > max_cp):
         cycle = _stack_bags(bags, t, step_size, (c, n), dev_, tw_flat)
         fm = gbm_tree_cycle(tables, y_flat, fm, cycle, n_splits=n_splits, nb=n_bins, min_leaf=min_leaf, lr=lr).f
         t += step_size
         resid = y32[:, None, :] - fm.reshape(f_outer, n_folds, n)
         dev[j] = ((test_w32 * resid**2).sum(2) / test_sum32).cpu().numpy()
+        if keep_fhist:
+            tdev.append(((train_w.to(f32) * resid**2).sum(2) / train_sum.to(f32)).cpu().numpy())
+            fhist.append(fm.reshape(f_outer, n_folds, n).cpu().numpy())
         fire = stopping_fired(dev[: j + 1].mean(axis=2), tolerance, win=win) & (stopped > max_cp)
         stopped[fire] = j + 1
         j += 1
-    return MultiCurve(np.minimum(stopped, j), dev, edges, xb)
+    return MultiCurve(np.minimum(stopped, j), dev, edges, xb, np.stack(tdev) if keep_fhist else None,
+                      np.stack(fhist) if keep_fhist else None)
 
 
 def _final_fits_global(
@@ -376,10 +365,11 @@ def fit_multi(
     ``group`` the tuple of response indices in that curve, ``restarts`` the
     restart count of its first — and ``("final", budget)``.
 
+    ``statistics=True`` also fills the CV and self statistics fields of
+    every result, as ``fit`` does.
+
     Returns R GBMStepResult; each ``final`` carries its trees with raw
     thresholds ``edges[feat, thr_bin]``."""
-    if statistics:
-        raise NotImplementedError("fit_multi(statistics=True) comes with the serial gbm.step slice")
     if not global_bins:
         raise NotImplementedError(_LATER_BINS)
     x = torch.as_tensor(x)
@@ -410,6 +400,7 @@ def fit_multi(
             min_leaf=min_leaf, step_size=step_size, max_trees=max_trees, tolerance=tol[group],
             n_bins=n_bins, selectors=selectors[group],
             bags=_stage_bags(bags, ("curve", tuple(group), int(restarts[group[0]]))), generator=generator,
+            keep_fhist=statistics,
         )
         dev32 = curve.dev.astype(np_dtype)
         cv_mean = dev32.mean(axis=2)                            # (max_cp, group)
@@ -422,7 +413,10 @@ def fit_multi(
                 restarts[j] += 1
                 lr_used[j] *= 0.5
                 continue
-            done[j] = dict(best_cp=int(np.argmin(cm)), j_stop=j_stop, dev=dev32[:j_stop, gi])
+            best_cp = int(np.argmin(cm))
+            done[j] = dict(best_cp=best_cp, j_stop=j_stop, dev=dev32[:j_stop, gi])
+            if statistics:
+                done[j].update(tdev=curve.tdev[:j_stop, gi], fbest=curve.fhist[best_cp, gi])
             finished.append(j)
         pending = [j for j in pending if j not in finished]
 
@@ -456,24 +450,265 @@ def fit_multi(
         cv_mean_j, cv_se_j = pad.copy(), pad.copy()
         cv_mean_j[: d["j_stop"]] = d["dev"].mean(axis=1)
         cv_se_j[: d["j_stop"]] = d["dev"].std(axis=1, ddof=1) / math.sqrt(n_folds)
+        kw: dict[str, Any] = {}
+        if statistics:
+            y_np = y_np_all[:, j]
+            cv_statistics, fitted_vars, fold_fit = _cv_statistics_at_best(
+                d["fbest"], y_np, w_np, selectors[j], n_folds, "gaussian")
+            fitted, residuals, self_statistics = _self_statistics(
+                state.train_fit.cpu().numpy(), y_np, w_np, "gaussian", total_dev[j], float(n))
+            t_mean = pad.copy()
+            t_mean[: d["j_stop"]] = d["tdev"].mean(axis=1)
+            kw = dict(training_deviance=torch.as_tensor(t_mean), fitted=fitted, residuals=residuals,
+                      fitted_vars=fitted_vars, fold_fit=fold_fit, self_statistics=self_statistics,
+                      cv_statistics=cv_statistics)
         results.append(GBMStepResult(
             final=state, best_trees=int(best_trees[j]), trees_fitted=d["j_stop"] * step_size,
             cv_deviance=torch.as_tensor(cv_mean_j), cv_deviance_se=torch.as_tensor(cv_se_j),
             family="gaussian", learning_rate=float(lr_used[j]), restarts=int(restarts[j]),
-            selector=selectors[j],
+            selector=selectors[j], **kw,
         ))
     return results
 
 
-def fit(*args, **kwargs):
-    """The serial gbm.step (``gbm_step.fit`` of the JAX package)."""
-    raise NotImplementedError(_LATER_SERIAL)
+class Curve(NamedTuple):
+    """The serial CV curve: checkpoints grown and, per checkpoint and fold,
+    the holdout and train deviances (inf past ``j``) and link-scale fits."""
+    j: int
+    dev: np.ndarray               # (max_cp, K) float32
+    tdev: np.ndarray              # (max_cp, K) float32
+    fhist: list                   # j tensors (K, n) float32
+
+
+def _cv_deviance_curve(
+    x, y, w, selector, *, n_folds, n_splits, lr, bag_fraction, min_leaf, step_size, max_trees, tolerance, n_bins,
+    family="gaussian", offset=None, monotone=None, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
+) -> Curve:
+    """One response's gbm.step CV curve: the K fold models are K chains of
+    K2, each on the bin table of its own training rows (``make_bins_masked``),
+    grown a ``step_size``-tree cycle at a time until the stopping rule fires
+    or ``max_trees``; after each cycle the folds' holdout and train
+    deviances and fits are kept.  Gaussian chains grow a cycle in one
+    launch; other families one tree a launch (``brt.family_tree``).
+
+    x (n, p), y and w (n,), selector (n,) fold ids; ``offset`` (n,) and
+    ``monotone`` (p,) float32 or None; ``bags(t)`` the (K, n) 0/1 bag draw
+    of tree t (t counts from 0 over the whole curve), multiplied by the
+    folds' training masks."""
+    x = torch.as_tensor(x)
+    dev_, f32 = x.device, torch.float32
+    n = x.shape[0]
+    sel = torch.as_tensor(np.asarray(selector), device=dev_).long()
+    fold_ids = torch.arange(n_folds, device=dev_)
+    train_w = (sel[None, :] != fold_ids[:, None]).to(f32) * w[None, :]
+    test_w = (sel[None, :] == fold_ids[:, None]).to(f32) * w[None, :]
+    edges_k = make_bins_masked(x, train_w, n_bins)                             # (K, p, nb - 1)
+    xb_k = torch.stack([bin_data(x, e) for e in edges_k])                      # (K, n, p)
+    tables = prepare_bins(xb_k, n_bins)
+    y_rep = y[None, :].expand(n_folds, n).contiguous()
+    f0 = f0_init(y_rep, train_w, family, offset=offset)                        # (K,)
+    f = (f0[:, None] + (0.0 if offset is None else offset[None, :])).expand(n_folds, n).contiguous()
+    if bags is None:
+        bags = _random_bags(generator, bag_fraction, (n_folds, n), dev_, step_size)
+    kw = dict(n_splits=n_splits, nb=n_bins, min_leaf=min_leaf, monotone=monotone)
+
+    max_cp = max_trees // step_size
+    win = min(10, max_cp)
+    dev = np.full((max_cp, n_folds), np.inf, np.float32)
+    tdev = np.full((max_cp, n_folds), np.inf, np.float32)
+    fhist = []
+    j = 0
+    while j < max_cp:
+        t0 = j * step_size
+        if family == "gaussian":
+            f = gbm_tree_cycle(tables, y_rep, f, _stack_bags(bags, t0, step_size, (n_folds, n), dev_, train_w),
+                               lr=lr, **kw).f
+        else:
+            for t in range(t0, t0 + step_size):
+                bag = torch.as_tensor(bags(t), device=dev_).reshape(n_folds, n).to(f32) * train_w
+                tree, cur = family_tree(tables, xb_k, y_rep, f, bag, family=family, **kw)
+                f = f + lr * tree[5].gather(1, cur)
+        u = response(f, family)
+        dev[j] = calc_deviance(y_rep, u, test_w, family).cpu().numpy()
+        tdev[j] = calc_deviance(y_rep, u, train_w, family).cpu().numpy()
+        fhist.append(f)
+        j += 1
+        if stopping_fired(dev[:j].mean(axis=1), tolerance, win=win):
+            break
+    return Curve(j, dev, tdev, fhist)
+
+
+def _cv_statistics_at_best(fbest, y_np, w_np, selector_np, n_folds, family):
+    """The reference's cv.statistics block at best.trees (V73:2014-2096):
+    per-fold heldout deviance and correlation with means and SEs, the
+    between-fold variances of the fitted values, and the heldout linear
+    predictors.  Host numpy; shared by ``fit`` and ``fit_multi``."""
+    ubest = response(torch.as_tensor(fbest), family).numpy()                  # response scale
+    n = y_np.shape[0]
+    cv_dev_stats = np.zeros(n_folds)
+    cv_cor_stats = np.zeros(n_folds)
+    fold_fit = np.zeros(n)
+    for i in range(n_folds):
+        held = (selector_np == i) & (w_np > 0)
+        yi, ui = y_np[held], ubest[i, held]
+        cv_dev_stats[i] = float(calc_deviance(torch.as_tensor(yi), torch.as_tensor(ui),
+                                              torch.as_tensor(w_np[held]), family))
+        cv_cor_stats[i] = float(np.corrcoef(yi, ui)[0, 1]) if held.sum() > 1 and np.std(ui) > 0 else np.nan
+        fold_fit[held] = fbest[i, held]
+    fitted_vars = np.var(ubest, axis=0, ddof=1)
+    cv_statistics = {
+        "deviance.mean": float(np.nanmean(cv_dev_stats)),
+        "deviance.se": float(np.nanstd(cv_dev_stats, ddof=1) / math.sqrt(n_folds)),
+        "correlation.mean": float(np.nanmean(cv_cor_stats)),
+        "correlation.se": float(np.nanstd(cv_cor_stats, ddof=1) / math.sqrt(n_folds)),
+        "deviance.stats": cv_dev_stats,
+        "correlation.stats": cv_cor_stats,
+    }
+    return cv_statistics, fitted_vars, fold_fit
+
+
+def _self_statistics(fitted_link, y_np, w_np, family, total_deviance, n_active):
+    """The reference's self.statistics block and family-correct residuals of
+    the final model (V73:2115-2152, 2190-2192).  Host numpy; shared by
+    ``fit`` and ``fit_multi``."""
+    fitted = response(torch.as_tensor(fitted_link), family).numpy()
+    resid_deviance = float(calc_deviance(torch.as_tensor(y_np), torch.as_tensor(fitted), torch.as_tensor(w_np),
+                                         family, calc_mean=False))
+    if family == "bernoulli":
+        contribs = y_np * np.log(np.maximum(fitted, 1e-12)) + (1 - y_np) * np.log(np.maximum(1 - fitted, 1e-12))
+        residuals = np.sqrt(np.abs(contribs * 2.0))
+        residuals = np.where(y_np - fitted < 0, -residuals, residuals)
+    elif family == "poisson":
+        contribs = np.where(
+            y_np == 0, 0.0, y_np * np.log(np.maximum(y_np, 1e-12) / np.maximum(fitted, 1e-12))
+        ) - (y_np - fitted)
+        residuals = np.sqrt(np.abs(contribs * 2.0))
+        residuals = np.where(y_np - fitted < 0, -residuals, residuals)
+    else:  # gaussian | laplace
+        residuals = y_np - fitted
+    with np.errstate(invalid="ignore"):
+        self_cor = float(np.corrcoef(y_np[w_np > 0], fitted[w_np > 0])[0, 1])
+    self_statistics = {
+        "null": total_deviance,
+        "mean.null": total_deviance / n_active,
+        "resid": resid_deviance,
+        "mean.resid": resid_deviance / n_active,
+        "correlation": self_cor,
+    }
+    return fitted, residuals, self_statistics
+
+
+def fit(
+    x, y, *, sample_weight=None, tree_complexity: int = 5, learning_rate: float = 0.001, bag_fraction: float = 0.5,
+    n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000, tolerance=None, min_leaf: float = 10.0,
+    n_bins: int = 64, family: str = "gaussian", prev_stratify: bool = True, max_restarts: int = 3, offset=None,
+    fold_vector=None, var_monotone=None, selector=None, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
+) -> GBMStepResult:
+    """The serial gbm.step of one response (see the module docstring).
+
+    The reference arguments mltps itself never passes (V73:247/493):
+
+    * ``offset``: (n,) fixed per-row link-scale term (V73:1664/1774).  The
+      CV fold fits, deviance curves, CV and self statistics and the final
+      model's ``fitted``/``residuals`` include it; ``predict`` does not add
+      it, as ``predict.gbm``.  The intercept-only total deviance stays
+      offset-free, as in the reference (V73:1786-1796).
+    * ``fold_vector``: (n,) fold membership (V73:1665/1752-1756); R's
+      1..n_folds labels (guessed from min >= 1 and max == n_folds, as the
+      JAX package does) or 0-based ones; the reference's wrong-length error.
+    * ``var_monotone``: (p,) in {-1, 0, +1} per predictor (V73:1670/1772).
+
+    Injection: ``selector`` (n,) fold ids (else drawn with ``_make_selector``
+    from ``generator``); ``bags(stage)`` returns the bag callable of a stage,
+    ``("curve", restarts)`` for the CV curve (see ``_cv_deviance_curve``)
+    and ``("final", budget)`` for the refit (tree t's (n,) draw)."""
+    family = check_family(family)
+    x = torch.as_tensor(x)
+    dev_, f32 = x.device, torch.float32
+    n, p = x.shape
+    y32 = torch.as_tensor(y, device=dev_).to(f32)
+    w = torch.ones((n,), dtype=f32, device=dev_) if sample_weight is None else \
+        torch.as_tensor(sample_weight, device=dev_).to(f32)
+    if offset is not None:
+        offset = torch.as_tensor(offset, device=dev_).to(f32)
+        if tuple(offset.shape) != (n,):
+            raise ValueError(f"offset must have shape ({n},), got {tuple(offset.shape)}")
+    if var_monotone is not None:
+        var_monotone = torch.as_tensor(var_monotone, device=dev_).to(f32).contiguous()
+        if tuple(var_monotone.shape) != (p,):
+            raise ValueError(f"var_monotone must have shape ({p},), got {tuple(var_monotone.shape)}")
+    n_active = float(max(int((w > 0).sum()), 1))
+    # total deviance of the intercept-only model (V73:1786-1796)
+    u0 = response(f0_init(y32, w, family).expand(n), family)
+    total_deviance = float(calc_deviance(y32, u0, w, family, calc_mean=False))
+    if tolerance is None:
+        tolerance = 0.001 * total_deviance / n_active   # tolerance.method "auto"
+    y_np, w_np = y32.cpu().numpy(), w.cpu().numpy()
+    if fold_vector is not None:
+        fold_vector = np.asarray(fold_vector)
+        if fold_vector.shape != (n,):
+            raise ValueError("supplied fold vector is of wrong length")   # the reference's complaint (V73:1752-1753)
+        selector_np = fold_vector.astype(np.int32)
+        if selector_np.min() >= 1 and selector_np.max() == n_folds:
+            selector_np = selector_np - 1                                  # R's 1..n_folds labels
+        if selector_np.min() < 0 or selector_np.max() >= n_folds:
+            raise ValueError(f"fold_vector labels must lie in 1..{n_folds} (R) or 0..{n_folds - 1}")
+    elif selector is not None:
+        selector_np = np.asarray(selector, np.int32)
+    else:
+        selector_np = _make_selector(generator, y_np, w_np, n_folds, family=family, prev_stratify=prev_stratify)
+
+    # the CV curve with the reference's restart rule (V73:1948-1955), automated at lr/2
+    lr_used, restarts = float(learning_rate), 0
+    while True:
+        curve = _cv_deviance_curve(
+            x, y32, w, selector_np, n_folds=n_folds, n_splits=tree_complexity, lr=lr_used,
+            bag_fraction=bag_fraction, min_leaf=min_leaf, step_size=step_size, max_trees=max_trees,
+            tolerance=tolerance, n_bins=n_bins, family=family, offset=offset, monotone=var_monotone,
+            bags=_stage_bags(bags, ("curve", restarts)), generator=generator,
+        )
+        j = curve.j
+        cv_mean = curve.dev[:j].mean(axis=1)
+        rose_early = any(jj < j and cv_mean[jj] > cv_mean[jj - 1] for jj in (1, 2, 3))
+        if not rose_early or restarts >= max_restarts:
+            break
+        restarts += 1
+        lr_used *= 0.5
+
+    dev = curve.dev[:j]
+    best_cp = int(np.argmin(cv_mean))               # the first checkpoint at the minimum
+    best_trees = (best_cp + 1) * step_size
+    cv_statistics, fitted_vars, fold_fit = _cv_statistics_at_best(
+        curve.fhist[best_cp].cpu().numpy(), y_np, w_np, selector_np, n_folds, family)
+
+    budget = max(step_size, -(-best_trees // step_size) * step_size)
+    final = brt.fit(
+        x, y32, sample_weight=w, n_trees=budget, n_splits=tree_complexity, lr=lr_used, bag_fraction=bag_fraction,
+        min_leaf=min_leaf, n_bins=n_bins, n_trees_active=best_trees, family=family, offset=offset,
+        var_monotone=var_monotone, bags=_stage_bags(bags, ("final", budget)), generator=generator,
+    )
+    fitted, residuals, self_statistics = _self_statistics(
+        final.train_fit.to(f32).cpu().numpy(), y_np, w_np, family, total_deviance, n_active)
+
+    pad = np.full((max_trees // step_size,), np.inf, np.float32)
+    filled = lambda v: torch.as_tensor(np.concatenate([v, pad[j:]]))
+    return GBMStepResult(
+        final=final, best_trees=best_trees, trees_fitted=j * step_size, cv_deviance=filled(cv_mean),
+        cv_deviance_se=filled(dev.std(axis=1, ddof=1) / math.sqrt(n_folds)), family=family,
+        learning_rate=lr_used, restarts=restarts, selector=selector_np,
+        training_deviance=filled(curve.tdev[:j].mean(axis=1)), fitted=fitted, residuals=residuals,
+        fitted_vars=fitted_vars, fold_fit=fold_fit, self_statistics=self_statistics, cv_statistics=cv_statistics,
+    )
 
 
 def predict(result: GBMStepResult, x, type: str = "link", tables=None) -> torch.Tensor:
-    """Boosted score at ``x``; for gaussian, the only family ported, the link
-    and response scales coincide."""
-    return brt.predict(result.final, x, tables=tables)
+    """Boosted score at ``x``; ``type='response'`` applies the inverse link
+    (predict.gbm returns the link scale; the reference applies exp/logistic
+    by hand, V73:1837-1851).  For gaussian the two coincide."""
+    out = brt.predict(result.final, x, tables=tables)
+    return response(out, result.family) if type == "response" else out
 
 
 def importance(result: GBMStepResult, names) -> dict:

@@ -10,20 +10,24 @@ of the k-th split in slots 2k+1 and 2k+2.  ``grow_level_trees`` grows the
 random forest's CART trees level-wise in the heap layout instead.
 
 ``grow_bestfirst_trees_cumshared`` grows K trees at once from cumulative
-split statistics; it is the plain version of kernel K2
-(``ops/tree_grow.py``, ``csrc/tree_grow.cu``).  ``tree_assign`` and
-``forest_predict`` route points through the trees one level at a time, the
-plain oracle of kernel K3 (``ops/forest.py``).
+split statistics, over one bin table or one per tree, with gbm's monotone
+check; it is the plain version of kernel K2 (``ops/tree_grow.py``,
+``csrc/tree_grow.cu``).  ``make_bins_masked`` bins a CV fold on its own
+training rows, and ``route_bins`` finds each training row's node in grown
+trees by its bins.  ``tree_assign`` and ``forest_predict`` route points
+through the trees one level at a time, the plain oracle of kernel K3
+(``ops/forest.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 __all__ = [
-    "Tree", "make_bins", "bin_data", "flat_bin_cum_onehot", "edges_lookup",
-    "grow_bestfirst_trees_cumshared", "grow_level_trees", "draw_mtry_scores", "assigned_predict",
+    "Tree", "make_bins", "make_bins_masked", "bin_data", "flat_bin_cum_onehot", "edges_lookup",
+    "grow_bestfirst_trees_cumshared", "route_bins", "grow_level_trees", "draw_mtry_scores", "assigned_predict",
     "tree_assign", "forest_predict",
 ]
 
@@ -57,6 +61,35 @@ def make_bins(x, n_bins: int = 64) -> torch.Tensor:
     return out.to(x.dtype).T.contiguous()
 
 
+def make_bins_masked(x, w, n_bins: int = 64) -> torch.Tensor:
+    """Quantile bin edges over the rows with ``w`` > 0: (p, n_bins - 1) for
+    w (n,), (K, p, n_bins - 1) for w (K, n), in ``x``'s dtype.
+
+    A CV fold's split candidates from its own training rows (the per-fold
+    ``gbm::gbm`` calls of the reference, V73:1830/1908): linear
+    interpolation between order statistics of the active rows, with the
+    positions in ``x``'s dtype, as the JAX package's ``make_bins_masked``
+    computes them."""
+    x = torch.as_tensor(x)
+    w = torch.as_tensor(w, device=x.device)
+    single = w.ndim == 1
+    w = w[None] if single else w
+    n, p = x.shape
+    big = torch.finfo(x.dtype).max
+    active = w > 0
+    xs = torch.sort(torch.where(active[:, :, None], x[None], big), dim=1).values      # (K, n, p), active first
+    na = active.sum(1)                                                               # (K,)
+    qs = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float64, device=x.device)[1:-1].to(x.dtype)
+    top = (na - 1).clamp_min(0)
+    pos = qs[None, :] * top[:, None].to(x.dtype)                                     # (K, nb - 1)
+    lo = torch.floor(pos).long()
+    hi = torch.minimum(lo + 1, top[:, None])
+    frac = (pos - lo.to(x.dtype))[:, None, :]
+    take = lambda idx: xs.gather(1, idx[:, :, None].expand(-1, -1, p)).transpose(1, 2)  # (K, p, nb - 1)
+    out = take(lo) * (1 - frac) + take(hi) * frac
+    return out[0] if single else out
+
+
 def bin_data(x, edges) -> torch.Tensor:
     """Bin index per (sample, feature): the number of edges strictly below x,
     (n, p) int64."""
@@ -65,14 +98,15 @@ def bin_data(x, edges) -> torch.Tensor:
 
 
 def flat_bin_cum_onehot(xb, nb: int) -> torch.Tensor:
-    """(n, p * nb) bfloat16 cumulative one-hot: 1 iff ``xb[i, f] <= b``.
+    """(n, p * nb) bfloat16 cumulative one-hot: 1 iff ``xb[i, f] <= b``
+    (with leading axes, one table each: (..., n, p) bins give (..., n, p * nb)).
 
     Contracting weights against it gives left-cumulative split statistics:
     ``(w @ cum1h)[f * nb + b]`` is the sum of w over rows with bin_f <= b.
     0/1 is exact in bfloat16."""
-    n, p = xb.shape
+    p = xb.shape[-1]
     b = torch.arange(nb, dtype=xb.dtype, device=xb.device)
-    return (xb[:, :, None] <= b).to(torch.bfloat16).reshape(n, p * nb)
+    return (xb[..., None] <= b).to(torch.bfloat16).reshape(xb.shape[:-1] + (p * nb,))
 
 
 def edges_lookup(edges, feat, thr_bin) -> torch.Tensor:
@@ -82,22 +116,26 @@ def edges_lookup(edges, feat, thr_bin) -> torch.Tensor:
 
 
 def _hist_cum(a, cum1h):
-    """(r, n) @ (n, L) in the gbm histogram accuracy class: ``a`` splits into
-    bfloat16 hi and lo halves, each contracts in float32 against the exact
-    0/1 table, and the two float32 sums add (~1e-5 relative).  These sums
-    only rank split candidates; node totals and leaf values are exact."""
+    """(r, n) @ (n, L), or (K, r, n) @ (K, n, L), in the gbm histogram
+    accuracy class: ``a`` splits into bfloat16 hi and lo halves, each
+    contracts in float32 against the exact 0/1 table, and the two float32
+    sums add (~1e-5 relative).  These sums only rank split candidates; node
+    totals and leaf values are exact."""
     hi = a.to(torch.bfloat16)
     lo = (a - hi.to(a.dtype)).to(torch.bfloat16)
     c = cum1h.to(torch.float32)
     return (hi.to(torch.float32) @ c + lo.to(torch.float32) @ c).to(a.dtype)
 
 
-def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None):
+def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None, monotone=None):
     """Best (feature, bin) per row of (R, p, nb) cumulative stats with (R, 1, 1)
     totals: gbm's squared-error gain, candidates with at least ``min_leaf``
     weight on both sides and a non-empty right side (b < nb - 1), on the
-    features where ``feat_mask`` (R, p) is > 0 if given; the first maximum
-    in flattened (feature, bin) order wins a tie."""
+    features where ``feat_mask`` (R, p) is > 0 if given, and with
+    ``monotone`` (p,) signs in {-1, 0, +1} only where the right child's mean
+    minus the left's does not take the opposite sign (gbm's var.monotone,
+    V73:1670/1772); the first maximum in flattened (feature, bin) order wins
+    a tie."""
     eps = 1e-12
     rw, rwy = tw - clw, twy - clwy
     gain = clwy * clwy / clw.clamp_min(eps) + rwy * rwy / rw.clamp_min(eps) - twy * twy / tw.clamp_min(eps)
@@ -106,6 +144,9 @@ def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None):
     ok = (clw >= min_leaf) & (rw >= min_leaf) & (pos < nb - 1)
     if feat_mask is not None:
         ok = ok & (feat_mask[:, :, None] > 0)
+    if monotone is not None:
+        sgn = torch.as_tensor(monotone, device=gain.device).to(gain.dtype)[None, :, None]
+        ok = ok & ~(sgn * (rwy / rw.clamp_min(eps) - clwy / clw.clamp_min(eps)) < 0)
     flat = torch.where(ok, gain, torch.full((), -torch.inf, dtype=gain.dtype, device=gain.device))
     flat = flat.reshape(r, p * nb)
     best = torch.argmax(flat, dim=1)
@@ -113,37 +154,45 @@ def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None):
 
 
 def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float, bin_cum1h,
-                                   return_tree: bool = False):
+                                   return_tree: bool = False, monotone=None):
     """K best-first regression trees at once from cumulative statistics.
 
-    ``xb`` (n, p) bins shared by every tree; ``ys`` (K, n) targets (boosting
-    residuals); ``ws`` (K, n) row weights (0 = out of bag); ``bin_cum1h``
-    the (n, p * nb) ``flat_bin_cum_onehot`` of ``xb``.  Each step splits the
-    node of largest gain (ties: lowest slot) if that gain exceeds 1e-9, into
-    slots 2k+1 (bin <= thr) and 2k+2.  Split statistics come from
-    ``_hist_cum``; node totals are exact row sums taken when a node is
-    created, and a leaf's value is swy / max(sw, 1e-12).
+    ``xb`` (n, p) bins shared by every tree, or (K, n, p) one table per
+    tree; ``ys`` (K, n) targets (boosting residuals); ``ws`` (K, n) row
+    weights (0 = out of bag); ``bin_cum1h`` the ``flat_bin_cum_onehot`` of
+    ``xb``, (n, p * nb) or (K, n, p * nb); ``monotone`` (p,) signs or None
+    (``_best_splits_cum``).  Each step splits the node of largest gain
+    (ties: lowest slot) if that gain exceeds 1e-9, into slots 2k+1
+    (bin <= thr) and 2k+2.  Split statistics come from ``_hist_cum``; node
+    totals are exact row sums taken when a node is created, and a leaf's
+    value is swy / max(sw, 1e-12).
 
     Returns (value (K, 2J+1), cur (K, n) final node of every row), plus
     (feat, thr_bin, internal, left, right, var_gain) with ``return_tree``.
     """
-    n, p = xb.shape
+    n, p = xb.shape[-2:]
     k_chains = ws.shape[0]
     dtype, dev = ys.dtype, ys.device
     n_total = 2 * n_splits + 1
-    nb = bin_cum1h.shape[1] // p
+    nb = bin_cum1h.shape[-1] // p
     neg = torch.full((), -torch.inf, dtype=dtype, device=dev)
     iota_nodes = torch.arange(n_total, device=dev)
     p_iota = torch.arange(p, device=dev)
     rows = torch.arange(k_chains, device=dev)
     wys = ws * ys
+    if xb.ndim == 3:   # chain k's rows of a (m * K, n) against its own table: (K, m, n) @ (K, n, L)
+        hist = lambda a: _hist_cum(a.reshape(-1, k_chains, n).transpose(0, 1), bin_cum1h).transpose(0, 1).reshape(
+            a.shape[0], -1)
+    else:
+        hist = lambda a: _hist_cum(a, bin_cum1h)
+    best = functools.partial(_best_splits_cum, min_leaf=min_leaf, monotone=monotone)
 
-    croot = _hist_cum(torch.cat([ws, wys], dim=0), bin_cum1h)
+    croot = hist(torch.cat([ws, wys], dim=0))
     tw = ws.sum(dim=1)
     twy = wys.sum(dim=1)
-    g0, f0, b0 = _best_splits_cum(
+    g0, f0, b0 = best(
         croot[:k_chains].reshape(k_chains, p, nb), croot[k_chains:].reshape(k_chains, p, nb),
-        tw[:, None, None], twy[:, None, None], min_leaf,
+        tw[:, None, None], twy[:, None, None],
     )
     node_gain = torch.full((k_chains, n_total), -torch.inf, dtype=dtype, device=dev)
     node_feat = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
@@ -153,7 +202,7 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
     node_gain[:, 0], node_feat[:, 0], node_bin[:, 0] = g0, f0, b0
     node_sw[:, 0], node_swy[:, 0] = tw, twy
     cur = torch.zeros((k_chains, n), dtype=torch.int64, device=dev)
-    xbt = xb.T
+    xbt = xb.transpose(-1, -2)
     if return_tree:
         t_feat = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
         t_thr = torch.zeros_like(t_feat)
@@ -170,14 +219,14 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
         bfq = node_feat[rows, q]
         bbq = node_bin[rows, q]
         lid, rid = 2 * k + 1, 2 * k + 2
-        sample_bin = xbt[bfq]                                # (K, n)
+        sample_bin = xbt[rows, bfq] if xb.ndim == 3 else xbt[bfq]   # (K, n)
         in_parent = ok[:, None] & (cur == q[:, None])
         go_left = in_parent & (sample_bin <= bbq[:, None])
         lm = go_left.to(dtype)
         pm = in_parent.to(dtype)
         # left and parent cumulative stats in one contraction; the right
         # child's by subtraction; totals by exact row sums
-        h = _hist_cum(torch.cat([ws * lm, wys * lm, ws * pm, wys * pm], dim=0), bin_cum1h)
+        h = hist(torch.cat([ws * lm, wys * lm, ws * pm, wys * pm], dim=0))
         clw, clwy = h[:k_chains], h[k_chains : 2 * k_chains]
         cpw, cpwy = h[2 * k_chains : 3 * k_chains], h[3 * k_chains :]
         tl_w = (ws * lm).sum(dim=1)
@@ -188,7 +237,7 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
         cwy = torch.cat([clwy, cpwy - clwy], dim=0).reshape(2 * k_chains, p, nb)
         tws = torch.cat([tl_w, tp_w - tl_w])
         twys = torch.cat([tl_wy, tp_wy - tl_wy])
-        cg, cf, cb = _best_splits_cum(cw, cwy, tws[:, None, None], twys[:, None, None], min_leaf)
+        cg, cf, cb = best(cw, cwy, tws[:, None, None], twys[:, None, None])
         node_gain = torch.where(iota_nodes[None, :] == q[:, None], neg, node_gain)
         node_gain[:, lid] = torch.where(ok, cg[:k_chains], neg)
         node_gain[:, rid] = torch.where(ok, cg[k_chains:], neg)
@@ -312,6 +361,23 @@ def assigned_predict(value, cur) -> torch.Tensor:
     """Leaf values of assigned nodes: ``value[t, cur[t, i]]`` for (T, N)
     values and (T, n) node ids."""
     return value.gather(1, cur)
+
+
+def route_bins(xb, feat, thr_bin, internal, left, right, depth: int) -> torch.Tensor:
+    """Node of every training row in K grown trees, by the rows' bins (the
+    trees' own routing: left iff bin <= thr_bin): node arrays (K, N), xb
+    (n, p) shared or (K, n, p) one table per tree; returns (K, n), routed
+    one level at a time for ``depth`` levels."""
+    k = feat.shape[0]
+    n = xb.shape[-2]
+    xbk = (xb if xb.ndim == 3 else xb[None].expand(k, -1, -1)).long()
+    feat, thr_bin, left, right = (a.long() for a in (feat, thr_bin, left, right))
+    cur = torch.zeros((k, n), dtype=torch.int64, device=feat.device)
+    for _ in range(depth):
+        b = xbk.gather(2, feat.gather(1, cur)[:, :, None])[:, :, 0]
+        nxt = torch.where(b <= thr_bin.gather(1, cur), left.gather(1, cur), right.gather(1, cur))
+        cur = torch.where(internal.gather(1, cur) > 0, nxt, cur)
+    return cur
 
 
 def tree_assign(trees: Tree, x, depth: int) -> torch.Tensor:

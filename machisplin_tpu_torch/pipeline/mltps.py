@@ -18,8 +18,8 @@ part 4  linear-ramp feathering of the tile seams (V73:756-896);
 part 5  final = ensemble + error surface, station R^2, and the keep-the-
         correction-only-if-R^2-improves rule (V73:898-965).
 
-All six letters are ported: BRT (``b``: batched gbm.step on kernel K2, and a
-merged-forest raster pass on kernel K3), GAM (``g``), NN (``n``: the batched
+All six letters are ported: BRT (``b``: gbm.step on kernel K2, batched over
+responses or serial for one, and a merged-forest raster pass on kernel K3), GAM (``g``), NN (``n``: the batched
 L-BFGS of ``models/nn.py``), MARS (``m``), RF (``r``: level-wise trees, and
 the same merged-forest raster pass on K3) and SVM (``v``: the coordinate
 sweep on kernel K4).
@@ -73,8 +73,8 @@ class MLTPSConfig:
     tps_mosaic_overlap: float = 0.025  # V73:680
     min_tile_points: int = 10        # V73:710
     tps_tile_chunk: int = 16         # tiles factorised per batched solve
-    # batch gbm.step final fits across responses; False (the serial fit) is
-    # reserved for the later slice that ports gbm_step.fit and raises until then
+    # batch gbm.step final fits across responses (fit_multi); False, or a
+    # single response, takes the serial gbm.step (gbm_step.fit) per response
     batch_final_brt: bool = True
     letters_pool: str | None = None  # restrict the algorithm pool (extension)
     predict_block_rows: int = 256
@@ -197,17 +197,22 @@ def _forest_tables(trees: Tree, n_feat: int):
     return build_leaf_bins(Tree(*(a.cpu() for a in trees)), n_feat=n_feat)
 
 
-def _final_brt_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generator, timer):
-    """BRT final fits for SEVERAL responses (ycols (n, R), R > 1): batched
-    gbm.step (``fit_multi``), then ONE raster pass of all responses' forests
-    merged into one leaf table with an (T_total, R) weight matrix that zeroes
-    foreign trees (V73:447/493/497).  Each forest is trimmed to its
-    best.trees prefix first: later trees carry zero weight.  Station
-    predictions are the refits' own training fits.  Returns (surfaces
-    (H, W, R), station predictions (n, R), [importance dicts])."""
+def _final_brt(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generator, timer):
+    """BRT final fits for one or more responses (ycols (n, R)): batched
+    gbm.step (``fit_multi``) for several responses with
+    ``batch_final_brt``, else the serial gbm.step (``fit``) per response
+    (V73:447/493); then ONE raster pass of all responses' forests merged
+    into one leaf table with an (T_total, R) weight matrix that zeroes
+    foreign trees (V73:497).  Each forest is trimmed to its best.trees
+    prefix first: later trees carry zero weight.  Station predictions are
+    the refits' own training fits.  Returns (surfaces (H, W, R), station
+    predictions (n, R), [importance dicts])."""
     n_resp = ycols.shape[1]
     with timer.phase(f"final_fit_b_x{n_resp}"):
-        results = gbm_step.fit_multi(x, ycols, generator=generator, **config.final_brt)
+        if n_resp > 1 and config.batch_final_brt:
+            results = gbm_step.fit_multi(x, ycols, generator=generator, **config.final_brt)
+        else:
+            results = [gbm_step.fit(x, ycols[:, j], generator=generator, **config.final_brt) for j in range(n_resp)]
     with timer.phase("importance_b"):
         imps = [gbm_step.importance(r, names) for r in results]
     nts = [max(int(r.best_trees), 1) for r in results]
@@ -425,12 +430,7 @@ def mltps(
             continue
         ycols = torch.as_tensor(np.stack([responses[resp_names[i]] for i in sel], axis=1), dtype=dtype, device=dev)
         if letter == "b":
-            if len(sel) < 2 or not config.batch_final_brt:
-                raise NotImplementedError(
-                    "BRT final fits of a single response take the serial gbm.step fit, "
-                    "which comes with a later slice of the port"
-                )
-            bsurf, bpt, imps = _final_brt_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
+            bsurf, bpt, imps = _final_brt(x, ycols, covar_names, rast_stack, config, generator, timer)
         elif letter == "r":
             bsurf, bpt, imps = _final_rf_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
         else:

@@ -439,9 +439,31 @@ def test_mltps_trouble_keeps_brt_only():
 
 
 def test_single_response_brt_raises():
+    """A single response that keeps "b" used to raise; its final fit is now
+    the serial gbm.step (``gbm_step.fit``), as in the JAX package.  Both
+    packages' mltps over "b" for bio_1 alone at downsample 48, with the JAX
+    package's CV folds: "b" kept, r² within R2_BAND, finite surfaces."""
     cov = mtt.synthetic_covariates(downsample=48, device="cpu")
+    data = cov.data.numpy()
     s = mtt.load_sampling()
     one = np.rec.fromarrays([s["long"], s["lat"], s["bio_1"]], names="long,lat,bio_1")
+    jcfg = JConfig(letters_pool="b", cv=JCVConfig(n_folds=3, brt=FAST_BRT), final_brt=FAST_BRT)
+    jres = mt.mltps(one, mt.Raster(jnp.asarray(data), mt.GridSpec(**cov.grid.__dict__), cov.names), tps=True,
+                    config=jcfg)
+    n = len(jres[0].residuals)
+    from machisplin_tpu.ensemble.kfold import kfold as jax_kfold
+
+    kf = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 777), 5)[0]
+    folds = np.asarray(jax_kfold(jax.random.fold_in(kf, 0), n, 3))[None]
     cfg = TConfig(letters_pool="b", cv=TCVConfig(n_folds=3, brt=FAST_BRT), final_brt=FAST_BRT)
-    with pytest.raises(NotImplementedError, match="serial gbm.step"):
-        mtt.mltps(one, cov, tps=False, config=cfg, device="cpu")
+    tres = mtt.mltps(one, mtt.Raster(torch.as_tensor(data), cov.grid, cov.names), tps=True, config=cfg, folds=folds,
+                     generator=torch.Generator().manual_seed(0), device="cpu")
+    assert [r.name for r in tres] == [r.name for r in jres] == ["bio_1"]
+    t, j = tres[0], jres[0]
+    assert t.summary["best model(s):"] == j.summary["best model(s):"] == "b"
+    assert list(t.var_imp) == list(j.var_imp) == ["brt"]
+    for key in ("r2 ensemble:", "r2 final:"):
+        assert abs(t.summary[key] - j.summary[key]) <= R2_BAND, key
+    for attr in ("final", "ensemble", "tps_surface"):
+        got = getattr(t, attr).data.numpy()
+        assert got.shape == np.asarray(getattr(j, attr).data).shape and np.isfinite(got).all(), attr

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
-(tree grower, one tree and a 50-tree cycle per launch), K3 (forest
+(tree grower, one tree and a 50-tree cycle per launch; one bin table or one
+per chain, monotone signs, rows in shared or in device memory), K3 (forest
 predictor, also on a random forest in its slot loop) and K4 (the SVM's
 coordinate sweep); and the NN letter's L-BFGS on the card against the CPU.
 
@@ -201,6 +202,161 @@ def test_k2_wrapper_checks_inputs(cuda):
         ttgrow.gbm_tree_cycle(ttgrow.prepare_bins(xb.cpu(), 16), ys, fs, ws[None], **kw)
     with pytest.raises(ValueError, match="offsets"):
         ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], **dict(kw, nb=8))
+    assert ttgrow.LAUNCHES == before
+
+
+def _k2_fold_tables(xb_raw, c, nb, device, seed=5):
+    """(xb (C, n, p), tables) of C CV folds, each binned on its own training
+    rows (``make_bins_masked``), as the serial gbm.step bins them; and the
+    folds' training masks (C, n) float32."""
+    x, _ = xb_raw
+    n = x.shape[0]
+    folds = torch.as_tensor(np.random.default_rng(seed).permutation(n) % c, device=device)
+    train = (folds[None, :] != torch.arange(c, device=device)[:, None]).float()
+    edges = ttrees.make_bins_masked(x, train, nb)
+    xb = torch.stack([ttrees.bin_data(x, e) for e in edges])
+    return xb, ttgrow.prepare_bins(xb, nb), train
+
+
+def _k2_raw(n, p, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, p)), device=device)
+    y = 2.0 * x[:, 0] + torch.sin(4 * x[:, 1 % p]) + 0.1 * torch.as_tensor(rng.standard_normal(n), device=device)
+    return x, y.float()
+
+
+def _agree(agree):
+    assert all(g[2] <= 1e-5 for g in agree["gaps"]), agree["gaps"]
+    assert agree["identical_chains"] > 0
+    assert agree["max_abs_err"] <= 1e-5 * agree["resid_scale"]
+
+
+@pytest.mark.parametrize("monotone", [False, True], ids=["free", "monotone"])
+def test_k2_per_chain_tables_match_plain(cuda, monotone):
+    """10 CV folds, each on a bin table of its own training rows, one launch
+    of a 20-tree cycle (tree complexity 5, with monotone signs or without):
+    against the plain version grown tree by tree from the same inputs, trees
+    part only at near-ties; f of the chains that never part within 1e-5 of
+    the residuals."""
+    c, n, p, nb = 10, 813, 5, 64
+    raw = _k2_raw(n, p, cuda, seed=6)
+    xb, tables, train = _k2_fold_tables(raw, c, nb, cuda)
+    assert tables.xbt.shape == (c, p, n) and tables.offsets.shape == (c, p, nb + 1)
+    y = raw[1][None].expand(c, n).contiguous()
+    f = torch.zeros_like(y)
+    rng = np.random.default_rng(7)
+    bags = torch.as_tensor((rng.uniform(size=(20, c, n)) < 0.5).astype(np.float32), device=cuda) * train
+    mono = torch.tensor([1.0, -1.0, 0.0, 1.0, 0.0], device=cuda) if monotone else None
+    kw = dict(n_splits=5, nb=nb, min_leaf=10.0, lr=0.1, monotone=mono)
+    got = ttgrow.gbm_tree_cycle(tables, y, f, bags, emit_tree=True, **kw)
+    torch.cuda.synchronize()
+    assert int(got.trees[2].sum()) > 0
+    _agree(ttgrow.cycle_agreement(xb, y, f, bags, got, **kw))
+    for ch in range(c):   # each chain as a launch of its own table alone
+        one = ttgrow.prepare_bins(xb[ch], nb)
+        alone = ttgrow.gbm_tree_cycle(one, y[ch : ch + 1].contiguous(), f[ch : ch + 1].contiguous(),
+                                      bags[:, ch : ch + 1].contiguous(), emit_tree=True, **kw)
+        assert torch.equal(alone.f[0], got.f[ch])
+        for a, b in zip(alone.trees, got.trees):
+            assert torch.equal(a[:, 0], b[:, ch])
+
+
+def test_k2_monotone_zero_and_none_bit_identical(cuda):
+    """All-zero monotone signs constrain nothing: bit-identical to no
+    monotone vector (the parent's call), with trees, scale and deviance
+    sums; real signs change the trees and keep every split's child means in
+    the signs' order."""
+    xb, ys, fs, ws = _k2_inputs(20, 813, 5, 64, cuda, seed=8)
+    tables = ttgrow.prepare_bins(xb, 64)
+    rng = np.random.default_rng(9)
+    bags = torch.as_tensor((rng.uniform(size=(10, 20, 813)) < 0.5).astype(np.float32), device=cuda) * ws
+    kw = dict(n_splits=5, nb=64, min_leaf=10.0, lr=1.0, emit_tree=True,
+              scale=torch.full((10, 20), 0.01, device=cuda), deviance_w=torch.stack([ws, (ws <= 0).float()]).contiguous())
+    none = ttgrow.gbm_tree_cycle(tables, ys, fs, bags, **kw)
+    zero = ttgrow.gbm_tree_cycle(tables, ys, fs, bags, monotone=torch.zeros(5, device=cuda), **kw)
+    assert torch.equal(none.f, zero.f) and torch.equal(none.deviance, zero.deviance)
+    assert all(torch.equal(a, b) for a, b in zip(none.trees, zero.trees))
+    mono = torch.tensor([1.0, -1.0, 1.0, -1.0, 1.0], device=cuda)
+    signed = ttgrow.gbm_tree_cycle(tables, ys, fs, bags, monotone=mono, **kw)
+    feat, internal, left, right, value = (signed.trees[k].cpu() for k in (0, 2, 3, 4, 5))
+    q = internal > 0
+    sgn = mono.cpu()[feat.long()]
+    d = value.gather(2, right.long()) - value.gather(2, left.long())
+    assert bool(((sgn * d)[q] >= -1e-5 * value.abs().max()).all())
+    assert not all(torch.equal(a, b) for a, b in zip(none.trees, signed.trees))
+
+
+@pytest.mark.parametrize("case", ["cv", "finals", "per_chain_monotone"])
+def test_k2_global_rows_bit_identical_to_shared(cuda, case):
+    """At n = 813 both layouts fit; rows in device memory give the same bits
+    as rows in shared memory: f, trees and deviance sums."""
+    n, p, nb = 813, 5, 64
+    if case == "per_chain_monotone":
+        raw = _k2_raw(n, p, cuda, seed=10)
+        xb, tables, ws = _k2_fold_tables(raw, 10, nb, cuda)
+        ys = raw[1][None].expand(10, n).contiguous()
+        fs = torch.zeros_like(ys)
+        kw = dict(n_splits=5, monotone=torch.tensor([0.0, 1.0, -1.0, 0.0, 1.0], device=cuda))
+    else:
+        c = 200 if case == "cv" else 20
+        xb, ys, fs, ws = _k2_inputs(c, n, p, nb, cuda, seed=11)
+        tables = ttgrow.prepare_bins(xb, nb)
+        kw = dict(n_splits=25 if case == "cv" else 5)
+    c = ys.shape[0]
+    rng = np.random.default_rng(12)
+    bags = torch.as_tensor((rng.uniform(size=(10, c, n)) < 0.5).astype(np.float32), device=cuda) * ws
+    kw.update(nb=nb, min_leaf=10.0, lr=0.05, emit_tree=True)
+    if case == "finals":
+        kw.update(lr=1.0, scale=torch.full((10, c), 0.001, device=cuda),
+                  deviance_w=torch.stack([ws, (ws <= 0).float()]).contiguous())
+    shared = ttgrow.gbm_tree_cycle_cuda(tables, ys, fs, bags, rows="shared", **kw)
+    glob = ttgrow.gbm_tree_cycle_cuda(tables, ys, fs, bags, rows="global", **kw)
+    auto = ttgrow.gbm_tree_cycle_cuda(tables, ys, fs, bags, **kw)
+    torch.cuda.synchronize()
+    for out in (glob, auto):
+        assert torch.equal(out.f, shared.f)
+        assert all(torch.equal(a, b) for a, b in zip(out.trees, shared.trees))
+        if case == "finals":
+            assert torch.equal(out.deviance, shared.deviance)
+
+
+@pytest.mark.parametrize("c,n,n_splits", [(20, 8000, 25), (4, 40000, 5)], ids=["n8000", "n40000"])
+def test_k2_beyond_shared_memory_matches_plain(cuda, c, n, n_splits):
+    """Station counts whose rows do not fit a block's shared memory (the
+    parent refused them): the rows go to device memory (int32 sorted rows
+    past 32,767), and a 5-tree cycle agrees with the plain version."""
+    p, nb = 5, 64
+    assert ttgrow._library().tree_grow_rows_global(n, p, nb, n_splits) == 1
+    xb, ys, fs, ws = _k2_inputs(c, n, p, nb, cuda, seed=13)
+    tables = ttgrow.prepare_bins(xb, nb)
+    assert tables.order.dtype == (torch.int16 if n <= 32767 else torch.int32)
+    rng = np.random.default_rng(14)
+    bags = torch.as_tensor((rng.uniform(size=(5, c, n)) < 0.5).astype(np.float32), device=cuda) * ws
+    kw = dict(n_splits=n_splits, nb=nb, min_leaf=10.0, lr=0.05)
+    with pytest.raises(ValueError, match="do not fit"):
+        ttgrow.gbm_tree_cycle_cuda(tables, ys, fs, bags, rows="shared", **kw)
+    got = ttgrow.gbm_tree_cycle(tables, ys, fs, bags, emit_tree=True, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.f).all()) and int(got.trees[2].sum()) > 0
+    _agree(ttgrow.cycle_agreement(xb, ys, fs, bags, got, **kw))
+
+
+def test_k2_wrapper_checks_new_inputs(cuda):
+    """Monotone signs, per-chain tables and the rows layout are checked
+    before any launch."""
+    xb, ys, fs, ws = _k2_inputs(3, 100, 2, 16, cuda)
+    kw = dict(n_splits=3, nb=16, min_leaf=5.0, lr=0.1)
+    tables = ttgrow.prepare_bins(xb, 16)
+    chains = ttgrow.prepare_bins(xb[None].expand(2, -1, -1), 16)
+    before = dict(ttgrow.LAUNCHES)
+    with pytest.raises(ValueError, match="monotone"):
+        ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], monotone=torch.zeros(3, device=cuda), **kw)
+    with pytest.raises(TypeError, match="monotone"):
+        ttgrow.gbm_tree_cycle(tables, ys, fs, ws[None], monotone=torch.zeros(2, device=cuda, dtype=torch.float64), **kw)
+    with pytest.raises(ValueError, match="xbt"):
+        ttgrow.gbm_tree_cycle(chains, ys, fs, ws[None], **kw)
+    with pytest.raises(ValueError, match="rows"):
+        ttgrow.gbm_tree_cycle_cuda(tables, ys, fs, ws[None], rows="l2", **kw)
     assert ttgrow.LAUNCHES == before
 
 

@@ -67,15 +67,32 @@ def test_mltps_tps_kept_only_if_r2_improves(both_runs):
 
 
 def test_mltps_unported_pool_raises():
-    """The default pool is ported whole; what mltps still refuses is the
-    serial gbm.step final fit (BRT kept by a single response, or with
-    ``batch_final_brt=False``), which comes with a later slice."""
+    """The default pool is ported whole, and the serial gbm.step with it:
+    ``batch_final_brt=False`` (once refused) runs each response's BRT final
+    through ``gbm_step.fit`` and agrees with the JAX package's run within the
+    BRT band (``test_torch_brt.R2_BAND``: the bags are torch draws here).
+    What is still unported is the batched drivers' ``global_bins=False``
+    (the shared- and per-fold-bins branches), which raises naming the next
+    slice."""
+    from machisplin_tpu.ensemble import CVConfig as JCVConfig
     from machisplin_tpu_torch.ensemble.cv import CVConfig as TCVConfig
+    from machisplin_tpu_torch.models import gbm_step as tgbm
+    from test_torch_brt import R2_BAND
 
     cov = mtt.synthetic_covariates(downsample=48, device="cpu")
+    data = cov.data.numpy()
     brt = dict(tree_complexity=2, learning_rate=0.1, bag_fraction=0.5, n_folds=3, step_size=10, max_trees=20,
                n_bins=16)
+    jcfg = JConfig(letters_pool="b", batch_final_brt=False, cv=JCVConfig(n_folds=3, brt=brt), final_brt=brt)
+    jres = mt.mltps(mtt.load_sampling(), mt.Raster(jnp.asarray(data), mt.GridSpec(**cov.grid.__dict__), cov.names),
+                    tps=False, trouble=True, config=jcfg)
     cfg = TConfig(letters_pool="b", batch_final_brt=False, cv=TCVConfig(n_folds=3, brt=brt), final_brt=brt)
-    with pytest.raises(NotImplementedError, match="serial gbm.step"):
-        mtt.mltps(mtt.load_sampling(), cov, trouble=True, config=cfg, generator=torch.Generator().manual_seed(0),
-                  device="cpu")
+    tres = mtt.mltps(mtt.load_sampling(), mtt.Raster(torch.as_tensor(data), cov.grid, cov.names), tps=False,
+                     trouble=True, config=cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    for j, t in zip(jres, tres):
+        assert t.summary["best model(s):"] == j.summary["best model(s):"] == "b"
+        assert abs(t.summary["r2 ensemble:"] - j.summary["r2 ensemble:"]) <= R2_BAND, t.name
+        assert np.isfinite(t.ensemble.data.numpy()).all()
+    x = torch.rand((40, 3), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="shared and per-fold bins branches come with a later slice"):
+        tgbm.fit_multi(x, torch.rand((40, 2), dtype=torch.float64), global_bins=False, **brt)

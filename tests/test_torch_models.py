@@ -200,6 +200,16 @@ def test_weight_keep_rule_matches_jax(rng):
         np.testing.assert_array_equal(a.kept_weights, b.kept_weights)
 
 
+def test_cv_defaults_match_jax():
+    """``run_cv`` and ``residual_matrix`` default to the JAX package's pool."""
+    import inspect
+
+    for name, arg in (("run_cv", "algorithms"), ("residual_matrix", "letters")):
+        want = inspect.signature(getattr(jcv, name)).parameters[arg].default
+        got = inspect.signature(getattr(tcv, name)).parameters[arg].default
+        assert got == want == "bgnmrv", name
+
+
 def test_unported_letters_raise():
     """Every letter of the reference's pool is ported; a letter outside it
     names no algorithm and raises before any fit."""
@@ -243,7 +253,8 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.models.gbm_step, machisplin_tpu_torch.models.brt, "
         "machisplin_tpu_torch.optim.lbfgs, machisplin_tpu_torch.models.nn, "
         "machisplin_tpu_torch.ops.svm_sweep, machisplin_tpu_torch.models.svm, machisplin_tpu_torch.models.rf, "
-        "machisplin_tpu_torch.pipeline.importance; "
+        "machisplin_tpu_torch.pipeline.importance, machisplin_tpu_torch.models.families, "
+        "machisplin_tpu_torch.models.deviance; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
