@@ -95,7 +95,28 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   seed=0)): a kept BRT's final through the serial gbm.step on K2 (its K2
   launches counted), K1 = 6, K3 and K4 > 0 launches, finite surfaces, the
   kept letters of the JAX keys, each r² within max(0.01, 3 x the keys'
-  spread) of their mean (``tools/record_jax_one_r2.py``).
+  spread) of their mean (``tools/record_jax_one_r2.py``);
+* ``tiles_main``: README Example 2 on the full grid, ``tiles_create(
+  synthetic_covariates(downsample=1), load_sampling(), **TILES)`` (2 x 2
+  tiles, the layout held to the JAX package's), the north-star call on
+  every tile (folds from numpy_folds(n_t, 10, 2, seed=t)), the three
+  writers, every ``<layer>.tif`` read back onto the card bit for bit, and
+  ``tiles_merge`` of the read-back finals on the card against the same
+  merge on the CPU (MERGE_TOL of max |surface|, the full grid, finite over
+  the covariates): per tile K1, K2 and K4 > 0 launches (K3 where a tile
+  keeps "b"), K2 in 50-tree cycles, each r² within max(0.01, 3 x the JAX
+  keys' spread) of their mean (``tools/record_jax_tiles_r2.py``), the
+  kept letters where every key agrees;
+* ``resume_tile``: the first tile's bio_1 result saved with ``save_layer``,
+  then ``mltps_resumable`` over bio_1 and bio_12 with a ``log_file``: bio_1
+  loaded with no kernel launch and bit for bit, bio_12 computed on the
+  card (a kept BRT's final through the serial gbm.step), the log non-empty;
+* ``cv_b_perfold``: the batched gbm.step's bins at the CV shape (813
+  stations x 2 responses, ``CVConfig.brt``): ``fit_outer_batched`` with the
+  global table, 20 shared tables and 200 per-fold tables (launches, trees,
+  best trees per response, seconds), ``fit_multi`` with both bins at the
+  finals' shape, and a 50-tree cycle of each layout timed, the shared and
+  per-fold ones held against K2's plain version (TIE_GAP).
 
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -170,6 +191,70 @@ CEILING_TIE_GAP = 1e-3
 # CV letter b on seeded stations beyond that ceiling; max_trees cut from
 # 10,000 to keep the phase to seconds
 CV_B_STATIONS, CV_B_MAX_TREES = 8000, 1000
+
+# README Example 2 (tiles_create -> mltps per tile -> tiles_merge) on the full
+# grid: 2 x 2 tiles (the reference's default is 3 x 3, V73:1165; 2 x 2 is
+# examples/tiled_landscape.py's), overlap feather_d / 2 cells a side
+TILES = {"out_ncol": 2, "out_nrow": 2, "feather_d": 50}
+# The JAX package's tiles_create on the same inputs (synthetic_covariates(1),
+# load_sampling()): each tile's extent and station count, from
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_tiles_r2.py 1` (its
+# first line).
+JAX_TILES_LAYOUT = {
+    "extents": [[-77.7644099259, -76.3627433153, -7.893583365299999, -6.8202500749],
+                [-76.4044099803, -75.00274336969999, -7.893583365299999, -6.8202500749],
+                [-77.7644099259, -76.3627433153, -6.861916739899999, -5.7885834495],
+                [-76.4044099803, -75.00274336969999, -6.861916739899999, -5.7885834495]],
+    "stations": [209, 195, 216, 222], "shapes": [[1263, 1657]] * 4,
+}
+# The JAX package's per-tile values (the default pool on each tile; covariates
+# as built, float32; folds from numpy_folds(n_t, 10, 2, seed=t)), PRNG keys
+# 0-7, from `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_tiles_r2.py
+# --keys 0,1,2,3,4,5,6,7 1` (CPU, 2,868-3,119 s a key).  Held as the
+# north-star call's values are: each r² within max(R2_TOL_B, 3 x the keys'
+# spread) of their mean, the kept letters only where every key agrees.  On a
+# tile of ~200 stations the keys part widely, and eight keys are recorded,
+# not four: tile 3's bio_1 keeps "bnv" with r² final 0.991-0.994 in keys 0-6
+# but "bn" in key 7, whose r² final falls with the SVM's share under the 5 %
+# cut; tile 4's bio_1 r² final runs from 0.985 to -2.41 (the TPS correction,
+# not kept there, degrades the ensemble).
+JAX_REFERENCE_TILES = [
+    {
+        "bio_1": {"kept": ["bnmv", "bnmv", "bnmr", "bnmv", "bmv", "bnmv", "bnmr", "bnmv"],
+                  "r2_ensemble": [0.9527660140976526, 0.9595669881872116, 0.9638144179931092, 0.9702990074317281, 0.9528169095660658, 0.9524428432824876, 0.9640333354854411, 0.9616735143346529],
+                  "r2_final": [0.98826202109964, 0.9856222780015584, 0.9645224232745634, 0.9713788773595969, 0.9352084962170799, 0.9889466773415388, 0.9785234332363744, 0.9674968637656677]},
+        "bio_12": {"kept": ["bnm", "bmv", "bnm", "bnmr", "bnmv", "bnm", "bnm", "bm"],
+                  "r2_ensemble": [0.8271580615622558, 0.7993956787313481, 0.8265112125795929, 0.815233116197005, 0.8078291655445229, 0.8374796918368839, 0.8225052357124074, 0.8091177264550136],
+                  "r2_final": [0.8447164271601855, 0.8096165855102453, 0.8061416569877015, 0.8382728497134408, 0.8261210061907358, 0.855487618910442, 0.8416519332440443, 0.802653432988536]},
+    },
+    {
+        "bio_1": {"kept": ["bv", "bv", "bnv", "bnv", "bv", "bnv", "bnv", "bnv"],
+                  "r2_ensemble": [0.8540628286262649, 0.8550982983109793, 0.8602703366335213, 0.8630204479813632, 0.84574482123071, 0.8741071565083169, 0.8508610084861004, 0.8620054969777607],
+                  "r2_final": [0.8108496298737657, -0.2905049013448826, 0.9346782630758341, 0.9830934108827071, 0.9733035946801649, 0.9811070505781108, 0.901555191431124, 0.9787953811705191]},
+        "bio_12": {"kept": ["bnv", "bv", "bv", "bv", "bnv", "bv", "bnv", "bv"],
+                  "r2_ensemble": [0.8199984500250836, 0.7846582091243741, 0.8044227088012204, 0.7797176184251255, 0.793385474878404, 0.7982923360412343, 0.7975894088942056, 0.789622286978422],
+                  "r2_final": [0.9969167350325132, 0.9901189330106119, 0.9351270583848246, 0.9974872875652055, 0.982893801077251, 0.9970925239055869, 0.9976143556024076, 0.9859297910182641]},
+    },
+    {
+        "bio_1": {"kept": ["bnv", "bnv", "bnv", "bnv", "bnv", "bnv", "bnv", "bn"],
+                  "r2_ensemble": [0.953844924442656, 0.9475899391937029, 0.9445847833210695, 0.9530479350432126, 0.9492290106101786, 0.9515684246917745, 0.9502166828115837, 0.9635462574717697],
+                  "r2_final": [0.9909151962202486, 0.9933506104358264, 0.9941942550554577, 0.991658850429333, 0.9912178502706024, 0.9873806801663946, 0.9929508356356447, 0.8669648696824659]},
+        "bio_12": {"kept": ["bnv", "bgnv", "bnv", "bgnv", "bnv", "bnv", "bnv", "bnv"],
+                  "r2_ensemble": [0.7905098893611036, 0.7814591747937355, 0.8008228111501021, 0.80240050473843, 0.7983478487749767, 0.8022723860951476, 0.780010310782875, 0.7856036616988832],
+                  "r2_final": [0.8137975710135371, 0.8426770165242186, 0.8278555119817095, 0.8515248094746787, 0.783225958930334, 0.859368743483212, 0.8293465169043217, 0.8368997400558882]},
+    },
+    {
+        "bio_1": {"kept": ["bg", "b", "bn", "b", "bg", "bgn", "b", "bnm"],
+                  "r2_ensemble": [0.8644284486138385, 0.8933958050819498, 0.9064775853118636, 0.892897028380158, 0.8547416720731684, 0.879620672820727, 0.8920650319381678, 0.8832842854487069],
+                  "r2_final": [0.7856159521838412, -2.402325900362441, -0.04563509941665589, -2.087970992832901, 0.9853111192038964, 0.6923764283097844, -2.4057696523016663, 0.670925065611579]},
+        "bio_12": {"kept": ["bn", "b", "bn", "b", "bn", "bn", "b", "bm"],
+                  "r2_ensemble": [0.8883882431100275, 0.8815815454756385, 0.8898886444755321, 0.8785603728127865, 0.899915940606822, 0.8955076184595593, 0.8944303432590661, 0.8819693204945331],
+                  "r2_final": [0.9203993069731216, 0.9540381222626136, 0.9713723995370331, 0.9016169945357795, 0.9810345960744341, 0.9557175159864743, 0.8380470996582846, 0.9784959015010158]},
+    },
+]
+# the card's merge of the read-back finals against the same merge on the CPU,
+# of max |surface|: the same float32 arithmetic in another order
+MERGE_TOL = 1e-6
 
 # The JAX package's values for mltps over the BRT + NN pool ("bn"; covariates
 # as built, float32; folds from numpy_folds(813, 10, 2, seed=0)), PRNG keys
@@ -784,7 +869,7 @@ def _k2_extended_checks(inp, failures) -> dict:
     n, p = x_np.shape
     folds = torch.as_tensor(numpy_folds(n, 10, 1, seed=0)[0], device="cuda")
     train = (folds[None, :] != torch.arange(10, device="cuda")[:, None]).float()
-    xb_k = torch.stack([ttrees.bin_data(x, e) for e in ttrees.make_bins_masked(x, train, nb)])
+    xb_k = ttrees.bin_data(x, ttrees.make_bins_masked(x, train, nb))
     tables_k = tree_grow.prepare_bins(xb_k, nb)
     plain_k = tables_k._replace(cum1h=ttrees.flat_bin_cum_onehot(xb_k, nb))
     y = torch.as_tensor(ys[:, 0], dtype=torch.float32, device="cuda")[None].expand(10, n).contiguous()
@@ -1692,6 +1777,319 @@ def phase_mltps_one():
     return launches
 
 
+def _same_bits(a, b) -> bool:
+    """Two float32 rasters (or None) equal bit for bit, NaN included, on one grid."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.data.dtype == b.data.dtype == torch.float32 and vars(a.grid) == vars(b.grid)
+            and a.data.device == b.data.device and torch.equal(a.data.view(torch.int32), b.data.view(torch.int32)))
+
+
+def phase_tiles_main(keep: dict):
+    """README Example 2 on the full grid: tiles_create, the north-star call
+    on every tile, the writers, every GeoTIFF read back onto the card bit for
+    bit, and tiles_merge of the read-back finals on the card against the
+    same merge on the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    ts = mtt.tiles_create(cov, s, **TILES)
+    failures = []
+    layout = {"extents": [list(e) for e in ts.extents], "stations": [len(d) for d in ts.dat],
+              "shapes": [list(r.grid.shape) for r in ts.rast]}
+    if layout != JAX_TILES_LAYOUT:
+        failures.append(f"tiles_create's layout {layout} is not the JAX package's {JAX_TILES_LAYOUT}")
+    out_dir = tempfile.mkdtemp(prefix="tiles_main_")
+    tiles, finals, results = [], {}, []
+    try:
+        for t, (rast, dat) in enumerate(zip(ts.rast, ts.dat)):
+            n = int(torch.isfinite(mtt.extract(rast, dat["long"], dat["lat"])).all(1).sum())
+            folds = numpy_folds(n, 10, 2, seed=t)
+            timer = mtt.PhaseTimer()
+            _reset_launches()
+            t1 = time.perf_counter()
+            out = mtt.mltps(dat, rast, tps=True, folds=folds, generator=torch.Generator().manual_seed(t),
+                            device="cuda", timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = _read_launches()
+            t2 = time.perf_counter()
+            d = os.path.join(out_dir, f"tile_{t + 1}")
+            paths = mtt.write_geotiff(out, d, seed=t) + mtt.write_residuals(out, d) + mtt.write_loadings(out, d)
+            t_write = time.perf_counter() - t2
+            mask = torch.isfinite(rast.data).all(0)
+            ref = JAX_REFERENCE_TILES[t] if JAX_REFERENCE_TILES else None
+            layers = {}
+            for r in out:
+                back = mtt.read_geotiff(os.path.join(d, f"{r.name}.tif"), device="cuda")
+                same = _same_bits(back, r.final)
+                if not same:
+                    failures.append(f"tile {t + 1} {r.name}: the GeoTIFF read back is not the final bit for bit")
+                if not torch.isfinite(r.final.data[mask]).all():
+                    failures.append(f"tile {t + 1} {r.name}: final not finite over the covariate mask")
+                finals.setdefault(r.name, []).append(back)
+                got = {"kept": r.summary["best model(s):"], "percent": r.summary["ensemble weights:"],
+                       "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"],
+                       "geotiff_bit_identical": same}
+                layers[r.name] = got
+                if ref is None:
+                    failures.append("no JAX reference recorded for the tiles")
+                    continue
+                kept_jax = set(ref[r.name]["kept"])
+                if len(kept_jax) == 1 and got["kept"] not in kept_jax:
+                    failures.append(f"tile {t + 1} {r.name} kept {got['kept']!r}, every JAX key keeps {kept_jax}")
+                for key in ("r2_ensemble", "r2_final"):
+                    mean, tol = _bn_band(r.name, key, ref)
+                    got[key + "_band"] = [mean, tol]
+                    if not abs(got[key] - mean) <= tol:
+                        failures.append(f"tile {t + 1} {r.name} {key} {got[key]} vs the JAX package's {mean} +- {tol}")
+            tiles.append({"tile": t + 1, "grid": list(rast.grid.shape), "stations": n, "mltps_wall_s": wall,
+                          "write_s": t_write, "files": len(paths), "phases_s": timer.as_dict(), "launches": launches,
+                          "layers": layers})
+            for name in ("tps_grid", "tree_grow", "svm_sweep"):
+                if launches[name] <= 0:
+                    failures.append(f"tile {t + 1}: kernel {name} did not run: {launches}")
+            if any("b" in g["kept"] for g in layers.values()) and launches["forest_predict"] <= 0:
+                failures.append(f"tile {t + 1} keeps b but K3 did not run: {launches}")
+            if launches["tree_grow_trees"] != K2_CYCLE * launches["tree_grow"]:
+                failures.append(f"tile {t + 1}: K2 did not grow {K2_CYCLE}-tree cycles: {launches}")
+            results.append(out)
+        # the read-back finals merged on the card, against the same merge on the CPU
+        full_mask = torch.isfinite(cov.data).all(0)
+        merge = {}
+        _reset_launches()
+        for name, tl in finals.items():
+            t3 = time.perf_counter()
+            got = mtt.tiles_merge(tl, ts.full_grid, in_ncol=TILES["out_ncol"], in_nrow=TILES["out_nrow"])
+            torch.cuda.synchronize()
+            t_merge = time.perf_counter() - t3
+            want = mtt.tiles_merge([r.to("cpu") for r in tl], ts.full_grid, in_ncol=TILES["out_ncol"],
+                                   in_nrow=TILES["out_nrow"])
+            g_np, w_np = got.data.cpu().numpy(), want.data.numpy()
+            scale = float(np.nanmax(np.abs(w_np)))
+            same_nan = bool((np.isnan(g_np) == np.isnan(w_np)).all())
+            err = float(np.nanmax(np.abs(g_np - w_np)))
+            finite = bool(torch.isfinite(got.data[full_mask]).all())
+            merge[name] = {"merge_s": t_merge, "device": str(got.data.device), "max_abs_err": err, "scale": scale,
+                           "same_nan": same_nan, "finite_over_mask": finite, "grid": list(got.grid.shape)}
+            if got.grid.shape != cov.grid.shape or got.data.device.type != "cuda":
+                failures.append(f"{name}: merged {got.grid.shape} on {got.data.device}")
+            if not (same_nan and err <= MERGE_TOL * scale):
+                failures.append(f"{name}: the card's merge differs from the CPU's by {err} (NaN same {same_nan})")
+            if not finite:
+                failures.append(f"{name}: the merge is not finite wherever the covariates are")
+        merge_launches = _read_launches()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    keep.update(tiles=ts, results=results)
+    emit({"phase": "tiles_main", "seconds": time.perf_counter() - t0, "tiles_layout": TILES, "layout": layout,
+          "tiles": tiles, "merge": merge, "merge_launches": merge_launches,
+          "jax_reference": JAX_REFERENCE_TILES, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return tiles
+
+
+def phase_resume_tile(keep: dict):
+    """Checkpoint and resume on the first tile: its bio_1 result saved, then
+    mltps_resumable over bio_1 and bio_12 with a run log: bio_1 loaded with
+    no kernel launch and bit for bit, bio_12 computed on the card (one
+    response: a kept BRT's final through the serial gbm.step)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.io import checkpoint
+    from machisplin_tpu_torch.models import gbm_step
+    from machisplin_tpu_torch.ops import tree_grow
+
+    t0 = time.perf_counter()
+    ts, saved = keep["tiles"], keep["results"][0][0]
+    rast, dat = ts.rast[0], ts.dat[0]
+    ck = tempfile.mkdtemp(prefix="resume_tile_")
+    failures, seen = [], {}
+    load, fit = checkpoint.load_layer, gbm_step.fit
+
+    def load_seen(*a, **kw):
+        before = _read_launches()
+        res = load(*a, **kw)
+        torch.cuda.synchronize()
+        seen["load_launches"] = {k: v - before[k] for k, v in _read_launches().items()}
+        return res
+
+    def fit_seen(*a, **kw):
+        before = dict(tree_grow.LAUNCHES)
+        res = fit(*a, **kw)
+        torch.cuda.synchronize()
+        seen["serial_final_k2"] = {k: tree_grow.LAUNCHES[k] - before[k] for k in before}
+        seen["serial_final"] = {"best_trees": res.best_trees, "restarts": res.restarts}
+        return res
+
+    try:
+        checkpoint.save_layer(os.path.join(ck, f"{saved.name}.npz"), saved)
+        n = int(torch.isfinite(mtt.extract(rast, dat["long"], dat["lat"])).all(1).sum())
+        log_file = os.path.join(ck, "MachiSplin.LOG.txt")
+        checkpoint.load_layer, gbm_step.fit = load_seen, fit_seen
+        try:
+            _reset_launches()
+            t1 = time.perf_counter()
+            out = checkpoint.mltps_resumable(dat, rast, ck, folds=numpy_folds(n, 10, 2, seed=0), tps=True,
+                                             generator=torch.Generator().manual_seed(10), device="cuda",
+                                             log_file=log_file)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = _read_launches()
+        finally:
+            checkpoint.load_layer, gbm_step.fit = load, fit
+        log_bytes = os.path.getsize(log_file) if os.path.exists(log_file) else 0
+        loaded, computed = out
+        same = (loaded.name == saved.name and loaded.summary == saved.summary
+                and np.array_equal(loaded.residuals, saved.residuals)
+                and all(_same_bits(getattr(loaded, k), getattr(saved, k))
+                        for k in ("final", "ensemble", "tps_surface")))
+        mask = torch.isfinite(rast.data).all(0)
+        finite = bool(torch.isfinite(computed.final.data[mask]).all())
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    load_launches = seen.get("load_launches")
+    kept = computed.summary["best model(s):"]
+    res = {"phase": "resume_tile", "seconds": time.perf_counter() - t0, "resumable_wall_s": wall,
+           "loaded": loaded.name, "loaded_bit_identical": same, "load_launches": load_launches,
+           "computed": computed.name, "computed_kept": kept, "computed_r2_ensemble": computed.summary["r2 ensemble:"],
+           "computed_r2_final": computed.summary["r2 final:"], "finite": finite, "launches": launches,
+           "serial_final_k2": seen.get("serial_final_k2"), "serial_final": seen.get("serial_final"),
+           "log_bytes": log_bytes, "stations": n}
+    emit(res)
+    if (loaded.name, computed.name) != ("bio_1", "bio_12"):
+        failures.append(f"mltps_resumable returned {loaded.name}, {computed.name}")
+    if load_launches is None or any(load_launches.values()):
+        failures.append(f"loading the checkpoint launched kernels: {load_launches}")
+    if not same:
+        failures.append("the loaded layer is not the saved one bit for bit")
+    if not finite:
+        failures.append("bio_12 is not finite over the covariate mask")
+    for name in ("tps_grid", "tree_grow", "svm_sweep"):
+        if launches[name] <= 0:
+            failures.append(f"kernel {name} did not run computing bio_12: {launches}")
+    if "b" in kept and not (seen.get("serial_final_k2") or {}).get("tree_grow", 0) > 0:
+        failures.append(f"bio_12 keeps b but the serial gbm.step final did not launch K2: {seen}")
+    if log_bytes <= 0:
+        failures.append("mltps(log_file=...) wrote an empty log")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_cv_b_perfold():
+    """The batched gbm.step's per-fold and shared bins at the CV shape (813
+    stations x 2 responses, CVConfig.brt): fit_outer_batched as run_cv's
+    letter b calls it, 20 outer chains of 10 inner chains, with the global
+    table, 20 shared tables and 200 tables; fit_multi with both bins at the
+    finals' shape; and one 50-tree cycle of the shared and per-fold table
+    layouts against K2's plain version (trees part only at near-ties,
+    TIE_GAP), with ms a tree beside the global table's."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.ensemble.cv import CVConfig
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.models import gbm_step, trees as ttrees
+    from machisplin_tpu_torch.ops import tree_grow
+    from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
+
+    t0 = time.perf_counter()
+    x_np, ys = _stations()
+    n, p = x_np.shape
+    x = torch.as_tensor(x_np, device="cuda")
+    ycols = torch.as_tensor(ys, dtype=torch.float32, device="cuda")
+    folds = torch.as_tensor(numpy_folds(n, 10, 2, seed=0), device="cuda")
+    outer = (folds[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float().reshape(20, n)
+    y_outer = ycols.T.repeat_interleave(10, dim=0).contiguous()
+    brt = CVConfig().brt
+    failures = []
+    runs = {}
+    for name, kw in (("global", dict(global_bins=True)), ("shared", dict(global_bins=False, shared_bins=True)),
+                     ("per_fold", dict(global_bins=False, shared_bins=False))):
+        _reset_launches()
+        t1 = time.perf_counter()
+        pred, best = gbm_step.fit_outer_batched(x, y_outer, outer, generator=torch.Generator().manual_seed(0),
+                                                **dict(brt, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {k: v for k, v in _read_launches().items() if k.startswith("tree_grow")}
+        best = best.reshape(2, 10)
+        runs[name] = {"seconds": wall, "launches": launches, "finite": bool(torch.isfinite(pred).all()),
+                      "best_trees_per_response": {"bio_1": best[0].tolist(), "bio_12": best[1].tolist()}}
+        if not runs[name]["finite"] or launches["tree_grow"] <= 0:
+            failures.append(f"fit_outer_batched {name}: finite {runs[name]['finite']}, launches {launches}")
+    final_brt = MLTPSConfig().final_brt
+    multi = {}
+    for name, shared in (("shared", True), ("per_fold", False)):
+        _reset_launches()
+        t1 = time.perf_counter()
+        res = gbm_step.fit_multi(x, ycols, global_bins=False, shared_bins=shared,
+                                 generator=torch.Generator().manual_seed(0), **final_brt)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _read_launches().items() if k.startswith("tree_grow")}
+        multi[name] = {"seconds": time.perf_counter() - t1, "launches": launches,
+                       "best_trees": [r.best_trees for r in res], "restarts": [r.restarts for r in res],
+                       "finite": all(bool(torch.isfinite(r.final.train_fit).all()) for r in res)}
+        if not multi[name]["finite"] or launches["tree_grow"] <= 0:
+            failures.append(f"fit_multi {name}: {multi[name]}")
+
+    # one cycle of each table layout at the CV shape, against the plain version
+    nb, min_leaf = brt.get("n_bins", 64), brt.get("min_leaf", 10.0)
+    sel = gbm_step._draw_selectors(torch.Generator().manual_seed(1), outer, 10)
+    w = (sel[:, None, :] != torch.arange(10, device="cuda")[None, :, None]).float() * outer[:, None, :]
+    w = w.reshape(200, n)
+    y = y_outer.repeat_interleave(10, dim=0).contiguous()
+    f = ((w * y).sum(1) / w.sum(1).clamp_min(1.0))[:, None].expand(200, n).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bags = (torch.rand((K2_CYCLE, 200, n), generator=g, device="cuda") < brt["bag_fraction"]).float() * w
+    kw = dict(n_splits=brt["tree_complexity"], nb=nb, min_leaf=min_leaf, lr=brt["learning_rate"])
+    cycles = {}
+    for name, (wt, rep, n_tables) in {"global": (None, 1, 1), "shared": (outer, 10, 20),
+                                       "per_fold": (w, 1, 200)}.items():
+        edges, xb, tables = gbm_step._grow_inputs(x, nb, wt, repeat=rep)
+        xb_c = xb.repeat_interleave(rep, 0) if rep > 1 else xb
+        plain = tables._replace(cum1h=ttrees.flat_bin_cum_onehot(xb_c, nb))
+        grown, timed = _k2_timed(tables, y, f, bags, kw, xb_c.cpu().numpy(), plain, n_tables=n_tables)
+        agree = tree_grow.cycle_agreement(xb_c, y, f, bags, grown, cum1h=plain.cum1h, **kw)
+        if name == "global":
+            # the time to compare with; kernel_k2 holds the global table's
+            # cycle at this shape.  With these draws one chain's tree parts
+            # at a 1.31e-4 gain gap (chain 13, tree 41; NVIDIA H100 80GB
+            # HBM3, 700.00 W): bio_12's deep nodes at float32's resolution,
+            # as at the ceiling shapes (CEILING_TIE_GAP)
+            check = dict(agree, gaps=sorted(g[2] for g in agree["gaps"]))
+        else:
+            check = _k2_agree_check(f"{name} bins", agree, failures)
+        cycles[name] = {"tables": n_tables, "chains": 200, **timed, "plain_cycle_check": check}
+    out = {"phase": "cv_b_perfold", "seconds": time.perf_counter() - t0, "stations": n, "features": p,
+           "brt": brt, "fit_outer_batched": runs, "fit_multi_finals_shape": multi, "cycle": cycles,
+           "ms_per_tree_vs_global": {k: v["ms"] / cycles["global"]["ms"] for k, v in cycles.items()}}
+    emit(out)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -1718,6 +2116,10 @@ def main() -> int:
     launches = phase_mltps_main()
     phase_cv_b_8000()
     phase_mltps_one()
+    keep: dict = {}
+    phase_tiles_main(keep)
+    phase_resume_tile(keep)
+    phase_cv_b_perfold()
     k2cv = k2["shapes"]["cv"]
     # no single PyTorch call grows a tree, evaluates a forest or runs a
     # coordinate sweep: library_ms null.

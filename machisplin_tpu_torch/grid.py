@@ -1,7 +1,7 @@
 """Raster/grid substrate: geo-referenced grids as torch tensors + affine metadata.
 
-Counterpart of ``machisplin_tpu/grid.py`` (terra's crop/extend/mosaic/extract
-as the reference uses them, V73:123-164, V73:145, V73:699-747).  Grid
+Counterpart of ``machisplin_tpu/grid.py`` (terra's crop/extend/mosaic/extract/
+resample as the reference uses them, V73:123-164, V73:145, V73:699-781).  Grid
 *metadata* (``GridSpec``) is plain Python; grid *values* are torch tensors
 shaped (H, W) or (C, H, W) on any device.  Coordinates are cell centres; the
 grid is north-up (row 0 = ymax edge).
@@ -20,10 +20,14 @@ from .utils import resolve_device
 __all__ = [
     "GridSpec",
     "Raster",
+    "WGS84",
     "crop",
+    "extend",
     "extract",
     "lonlat_rasters",
+    "map_blocks",
     "mosaic",
+    "resample_near",
     "stack",
 ]
 
@@ -198,6 +202,49 @@ def crop(r: Raster, ext) -> Raster:
     )
 
 
+def extend(r: Raster, target: GridSpec, fill=float("nan")) -> Raster:
+    """Pad ``r`` with ``fill`` out to the aligned grid ``target`` (terra
+    ``extend``, V73:719)."""
+    if not r.grid.aligned_with(target):
+        raise ValueError("extend: grids are not aligned")
+    row_off, col_off = r.grid.offsets_in(target)
+    bottom = target.nrows - (row_off + r.grid.nrows)
+    right = target.ncols - (col_off + r.grid.ncols)
+    if min(row_off, col_off, bottom, right) < 0:
+        raise ValueError("extend: raster does not fit inside target grid")
+    out = torch.full(tuple(r.data.shape[:-2]) + target.shape, fill, dtype=r.data.dtype, device=r.data.device)
+    out[..., row_off : row_off + r.grid.nrows, col_off : col_off + r.grid.ncols] = r.data
+    return Raster(out, target, r.names)
+
+
+def resample_near(r: Raster, target: GridSpec) -> Raster:
+    """Nearest-neighbour resample onto ``target`` (terra ``resample(method=
+    'near')``, V73:781): each target cell takes the source cell holding its
+    centre, clamped to the source grid.  Indices are computed in float64 on
+    the host, as ``extract``'s are."""
+    tx = target.xmin + (np.arange(target.ncols, dtype=np.float64) + 0.5) * target.dx
+    ty = target.ymax - (np.arange(target.nrows, dtype=np.float64) + 0.5) * target.dy
+    col = np.clip(np.floor((tx - r.grid.xmin) / r.grid.dx).astype(np.int64), 0, r.grid.ncols - 1)
+    row = np.clip(np.floor((r.grid.ymax - ty) / r.grid.dy).astype(np.int64), 0, r.grid.nrows - 1)
+    dev = r.data.device
+    rows = torch.as_tensor(row, device=dev)[:, None]
+    cols = torch.as_tensor(col, device=dev)[None, :]
+    return Raster(r.data[..., rows, cols], target, r.names)
+
+
+def map_blocks(fn, r: Raster, block: tuple[int, int]) -> Raster:
+    """Apply ``fn(data_block, subgrid) -> block`` over non-overlapping
+    ``block`` = (rows, cols) tiles of ``r``, a host loop; the result has
+    ``r``'s shape, dtype and device."""
+    out = torch.empty_like(r.data)
+    for r0 in range(0, r.grid.nrows, block[0]):
+        r1 = min(r0 + block[0], r.grid.nrows)
+        for c0 in range(0, r.grid.ncols, block[1]):
+            c1 = min(c0 + block[1], r.grid.ncols)
+            out[..., r0:r1, c0:c1] = fn(r.data[..., r0:r1, c0:c1], r.grid.subgrid(r0, r1, c0, c1))
+    return Raster(out, r.grid, r.names)
+
+
 def _window_in(r: Raster, target: GridSpec) -> tuple[int, int]:
     if not r.grid.aligned_with(target):
         raise ValueError("raster is not aligned with the target grid")
@@ -217,8 +264,7 @@ def mosaic(rasters: Sequence[Raster], target: GridSpec, fun: str = "mean") -> Ra
     ``fun='mean'`` averages overlapping valid cells (terra ``mosaic(fun=
     'mean')``, V73:746); ``fun='first'`` keeps the first valid value.  Each
     raster is added into its window of the target, which gives the same
-    values as extending every raster to the target first (terra
-    ``extend``, V73:719)."""
+    values as ``extend``-ing every raster to the target first."""
     r0 = rasters[0]
     shape = tuple(r0.data.shape[:-2]) + target.shape
     dtype, device = r0.data.dtype, r0.data.device

@@ -27,19 +27,24 @@ Two drivers, both on kernel K2 (``ops/tree_grow.gbm_tree_cycle``):
   families one tree a launch with their leaves re-estimated.  The final
   model is ``brt.fit`` on full-data bins.
 * the batched ones, ``fit_outer_batched`` (run_cv's letter b) and
-  ``fit_multi`` (mltps's finals for several responses), gaussian: every
-  chain (outer fold x inner fold, or response x inner fold) grows on ONE
-  table of full-data quantile bins, so one launch advances all of them by a
-  cycle, as the JAX package's cycle program does.
+  ``fit_multi`` (mltps's finals for several responses), gaussian: one K2
+  launch advances every chain (outer fold x inner fold, or response x inner
+  fold) by a cycle.  By default every chain grows on ONE table of full-data
+  quantile bins, the JAX package's ``global_bins`` deviation.  With
+  ``global_bins=False`` the chains take the reference's per-fold binning:
+  ``shared_bins=True`` bins each outer chain on its own training rows and
+  its K inner chains share that table; ``shared_bins=False`` bins every
+  chain on its own inner training rows.  K2 reads one table per chain, so
+  the shared tables are repeated over their inner chains (C x n x p bytes).
+  The final refits of ``fit_outer_batched`` then bin each outer fold on its
+  training rows; ``fit_multi``'s rows all train, so its refits keep the one
+  full-data table.
 
 Chains are float32, as K2's are.  Randomness can be injected: ``selector=``
 / ``selectors=`` fix the fold memberships and ``bags=`` the bag draws (the
 JAX package's threefry streams cannot be drawn in torch; the parity tests
 rebuild them and pass them in).  Otherwise both come from a
 ``torch.Generator``.
-
-Not ported yet (NotImplementedError names the later slice): the shared- and
-per-fold-bins branches of the batched drivers (``global_bins=False``).
 """
 from __future__ import annotations
 
@@ -60,9 +65,6 @@ __all__ = [
     "GBMStepResult", "MultiCurve", "stopping_fired", "best_trees_from_curve",
     "fit_outer_batched", "fit_multi", "fit", "predict", "importance",
 ]
-
-_LATER_BINS = "only global_bins=True is ported; the shared and per-fold bins branches come with a later slice"
-
 
 class GBMStepResult(NamedTuple):
     final: brt.BRTState
@@ -87,8 +89,8 @@ class GBMStepResult(NamedTuple):
 class MultiCurve(NamedTuple):
     stopped: np.ndarray           # (F,) stopping checkpoint per outer chain
     dev: np.ndarray               # (max_cp, F, K) holdout deviance (inf pad), float64
-    edges: torch.Tensor           # (p, nb - 1) global bin edges
-    xb: torch.Tensor              # (n, p) binned data
+    edges: torch.Tensor           # (p, nb - 1) global bins; (F, p, nb - 1) shared; (F, K, p, nb - 1) per fold
+    xb: torch.Tensor              # (n, p) binned data; (F, n, p) shared; (F, K, n, p) per fold
     tdev: np.ndarray | None = None   # with keep_fhist: (cycles, F, K) train deviance, float32
     fhist: np.ndarray | None = None  # with keep_fhist: (cycles, F, K, n) link-scale fits, float32
 
@@ -152,16 +154,25 @@ def _draw_selectors(generator, w_outer, n_folds):
     return torch.zeros((f_outer, n), dtype=torch.int64, device=w_outer.device).scatter_(1, order, seq)
 
 
-def _grow_inputs(x, n_bins):
-    """Global bins and K2's inputs made from them (``prepare_bins``)."""
-    edges = make_bins(x, n_bins)                              # (p, nb - 1)
-    xb = bin_data(x, edges)                                   # (n, p)
-    return edges, xb, prepare_bins(xb, n_bins)
+def _grow_inputs(x, n_bins, w=None, repeat: int = 1):
+    """Bins and K2's inputs made from them (``prepare_bins``): the global
+    full-data bins for ``w`` None; else one table per row of ``w`` (C, n),
+    each binned on its rows with w > 0 (``make_bins_masked``), every table
+    repeated ``repeat`` times in K2's inputs (one per chain).  Returns
+    (edges, xb, tables): edges (p, nb - 1) or (C, p, nb - 1), xb (n, p) or
+    (C, n, p)."""
+    if w is None:
+        edges = make_bins(x, n_bins)                          # (p, nb - 1)
+        xb = bin_data(x, edges)                               # (n, p)
+        return edges, xb, prepare_bins(xb, n_bins)
+    edges = make_bins_masked(x, w, n_bins)                    # (C, p, nb - 1)
+    xb = bin_data(x, edges)                                   # (C, n, p)
+    return edges, xb, prepare_bins(xb.repeat_interleave(repeat, 0) if repeat > 1 else xb, n_bins)
 
 
 def _cv_deviance_curve_multi(
     x, y, w_outer, *, n_folds, n_splits, lr, bag_fraction, min_leaf, step_size, max_trees,
-    tolerance, n_bins, selectors=None, global_bins=True, bags: Callable | None = None,
+    tolerance, n_bins, selectors=None, global_bins=True, shared_bins=False, bags: Callable | None = None,
     generator: torch.Generator | None = None, keep_fhist: bool = False,
 ) -> MultiCurve:
     """All OUTER chains' gbm.step CV curves, batched: F x K boosting chains
@@ -173,10 +184,11 @@ def _cv_deviance_curve_multi(
     (F, n) inner-fold ids (drawn from ``generator`` when None); ``bags(t)``
     the (F, K, n) or (F * K, n) 0/1 bag draw of tree t (t counts from 0
     over the whole curve), multiplied by the inner training masks.
+    Bins: global (one full-data table) by default; with ``global_bins=False``
+    one table per outer chain from its training rows, shared by its K inner
+    chains (``shared_bins``), or one per chain from its inner training rows.
     ``keep_fhist``: also the train deviances and link-scale fits at every
     checkpoint (the CV statistics' inputs)."""
-    if not global_bins:
-        raise NotImplementedError(_LATER_BINS)
     x = torch.as_tensor(x)
     dev_ = x.device
     n, p = x.shape
@@ -191,7 +203,14 @@ def _cv_deviance_curve_multi(
     fold_ids = torch.arange(n_folds, device=dev_)
     train_w = (selectors[:, None, :] != fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
     test_w = (selectors[:, None, :] == fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
-    edges, xb, tables = _grow_inputs(x, n_bins)
+    if global_bins:
+        edges, xb, tables = _grow_inputs(x, n_bins)
+    elif shared_bins:
+        edges, xb, tables = _grow_inputs(x, n_bins, w_outer, repeat=n_folds)
+    else:
+        edges, xb, tables = _grow_inputs(x, n_bins, train_w.reshape(f_outer * n_folds, n))
+        edges = edges.reshape((f_outer, n_folds) + edges.shape[1:])
+        xb = xb.reshape((f_outer, n_folds) + xb.shape[1:])
     test_sum = test_w.sum(2).clamp_min(1.0)
     train_sum = train_w.sum(2).clamp_min(1.0)
     f0 = (train_w * y[:, None, :]).sum(2) / train_sum          # (F, K)
@@ -227,13 +246,15 @@ def _cv_deviance_curve_multi(
                       np.stack(fhist) if keep_fhist else None)
 
 
-def _final_fits_global(
+def _final_fits(
     x, ycols, best_trees, *, budget, n_splits, lr_vec, bag_fraction, min_leaf, n_bins,
-    sample_w=None, with_deviance=False, emit_trees=False, bags: Callable | None = None,
+    sample_w=None, own_bins=False, with_deviance=False, emit_trees=False, bags: Callable | None = None,
     generator: torch.Generator | None = None, step_size: int = STEP_SIZE,
 ) -> dict:
-    """All chains' gaussian final refits under the global bins, one K2
-    launch per ``step_size``-tree cycle.  K2 grows at lr = 1 and updates
+    """All chains' gaussian final refits, one K2 launch per
+    ``step_size``-tree cycle, under the global bins, or with ``own_bins``
+    each chain binned on its rows with ``sample_w`` > 0 (one table each).
+    K2 grows at lr = 1 and updates
     ``f += lr_c * act_c * (f_new - f)`` after each tree, which applies
     per-chain learning rates (fit_multi's restarts) and the best.trees cut
     (trees past it still grow on the frozen residuals and add nothing).
@@ -241,7 +262,8 @@ def _final_fits_global(
     ``sample_w``.
 
     Returns a dict: f0 (C,), train_fit (C, n), tree_active (C, budget),
-    edges; with ``emit_trees`` the trees' arrays (budget, C, .) feat,
+    edges ((p, nb - 1), or (C, p, nb - 1) with ``own_bins``); with
+    ``emit_trees`` the trees' arrays (budget, C, .) feat,
     thr_bin, internal, left, right, value, var_gain; with ``with_deviance``
     train_deviance and holdout_deviance (budget, C)."""
     x = torch.as_tensor(x)
@@ -252,7 +274,7 @@ def _final_fits_global(
     c = ycols.shape[0]
     w = torch.ones((c, n), dtype=f32, device=dev_) if sample_w is None else \
         torch.as_tensor(sample_w, device=dev_).to(f32)
-    edges, xb, tables = _grow_inputs(x, n_bins)
+    edges, xb, tables = _grow_inputs(x, n_bins, w if own_bins else None)
     lr_col = torch.as_tensor(np.asarray(lr_vec), device=dev_).to(f32)[:, None]
     bt = torch.as_tensor(np.asarray(best_trees), device=dev_)
     act = (torch.arange(budget, device=dev_)[None, :] < bt[:, None]).to(f32)   # (C, budget)
@@ -294,23 +316,24 @@ def fit_outer_batched(
     x, y, outer_train_w, *, tree_complexity: int = 25, learning_rate: float = 0.01,
     bag_fraction: float = 0.5, n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000,
     tolerance=None, min_leaf: float = 10.0, n_bins: int = 64, global_bins: bool = True,
-    selectors=None, bags: Callable | None = None, generator: torch.Generator | None = None,
+    shared_bins: bool = True, selectors=None, bags: Callable | None = None,
+    generator: torch.Generator | None = None,
 ):
     """gbm.step for ALL outer CV folds at once (the run_cv path; gaussian).
 
     outer_train_w (F, n) per-outer-fold training masks; ``y`` (n,) or (F, n)
-    (several responses' runs batch as further chains).  Every chain's split
-    candidates come from ONE table of full-data quantiles (the JAX
-    package's ``global_bins`` deviation), all F chains in one curve.
-    Returns (predictions (F, n) float32 of each fold's best.trees refit at
-    every row, best_trees (F,) numpy).
+    (several responses' runs batch as further chains), all F chains in one
+    curve.  With ``global_bins`` every chain's split candidates come from
+    ONE table of full-data quantiles (the JAX package's deviation); with
+    ``global_bins=False`` the curve bins per outer fold (``shared_bins``)
+    or per inner fold, and each outer fold's refit bins on its own training
+    rows.  Returns (predictions (F, n) float32 of each fold's best.trees
+    refit at every row, best_trees (F,) numpy).
 
     Injection: ``selectors`` (F, n) inner-fold ids; ``bags(stage)`` returns
     the per-tree bag callable of a stage, ``("curve", 0)`` for the CV curve
     (see ``_cv_deviance_curve_multi``) and ``("final", budget)`` for the
-    refits of ``budget`` trees each (``_final_fits_global``)."""
-    if not global_bins:
-        raise NotImplementedError(_LATER_BINS)
+    refits of ``budget`` trees each (``_final_fits``)."""
     x = torch.as_tensor(x)
     dev_ = x.device
     y = torch.as_tensor(y, device=dev_).to(x.dtype)
@@ -326,8 +349,8 @@ def fit_outer_batched(
     curve = _cv_deviance_curve_multi(
         x, y, outer_train_w, n_folds=n_folds, n_splits=tree_complexity, lr=learning_rate,
         bag_fraction=bag_fraction, min_leaf=min_leaf, step_size=step_size, max_trees=max_trees,
-        tolerance=tolerance, n_bins=n_bins, selectors=selectors,
-        bags=_stage_bags(bags, ("curve", 0)), generator=generator,
+        tolerance=tolerance, n_bins=n_bins, selectors=selectors, global_bins=global_bins,
+        shared_bins=shared_bins, bags=_stage_bags(bags, ("curve", 0)), generator=generator,
     )
     np_dtype = np.float32 if x.dtype == torch.float32 else np.float64
     cv_mean = curve.dev.astype(np_dtype).mean(axis=2)          # (max_cp, F)
@@ -336,11 +359,11 @@ def fit_outer_batched(
         np.int64,
     )
     budget = int(-(-best_trees.max() // step_size) * step_size)
-    res = _final_fits_global(
+    res = _final_fits(
         x, y, best_trees, budget=budget, n_splits=tree_complexity,
         lr_vec=np.full(f_outer, learning_rate), bag_fraction=bag_fraction, min_leaf=min_leaf,
-        n_bins=n_bins, sample_w=outer_train_w, bags=_stage_bags(bags, ("final", budget)), generator=generator,
-        step_size=step_size,
+        n_bins=n_bins, sample_w=outer_train_w, own_bins=not global_bins, bags=_stage_bags(bags, ("final", budget)),
+        generator=generator, step_size=step_size,
     )
     return res["train_fit"], best_trees
 
@@ -349,7 +372,7 @@ def fit_multi(
     x, ycols, *, tree_complexity: int = 5, learning_rate: float = 0.001, bag_fraction: float = 0.5,
     n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000, tolerance=None,
     min_leaf: float = 10.0, n_bins: int = 64, max_restarts: int = 3, statistics: bool = False,
-    global_bins: bool = True, selectors=None, bags: Callable | None = None,
+    global_bins: bool = True, shared_bins: bool = True, selectors=None, bags: Callable | None = None,
     generator: torch.Generator | None = None,
 ) -> list:
     """gbm.step final fits for SEVERAL responses (ycols (n, R); gaussian,
@@ -368,10 +391,14 @@ def fit_multi(
     ``statistics=True`` also fills the CV and self statistics fields of
     every result, as ``fit`` does.
 
+    Bins: the global full-data table by default; with ``global_bins=False``
+    the curve's chains bin per response on its (all) rows, shared by its K
+    inner chains (``shared_bins``), or per inner fold on its own training
+    rows.  The refits keep the full-data table either way: every row
+    trains.
+
     Returns R GBMStepResult; each ``final`` carries its trees with raw
     thresholds ``edges[feat, thr_bin]``."""
-    if not global_bins:
-        raise NotImplementedError(_LATER_BINS)
     x = torch.as_tensor(x)
     dev_ = x.device
     n, p = x.shape
@@ -398,7 +425,7 @@ def fit_multi(
             x, ycols.T[group], torch.ones((len(group), n), dtype=x.dtype, device=dev_),
             n_folds=n_folds, n_splits=tree_complexity, lr=float(lr_g), bag_fraction=bag_fraction,
             min_leaf=min_leaf, step_size=step_size, max_trees=max_trees, tolerance=tol[group],
-            n_bins=n_bins, selectors=selectors[group],
+            n_bins=n_bins, selectors=selectors[group], global_bins=global_bins, shared_bins=shared_bins,
             bags=_stage_bags(bags, ("curve", tuple(group), int(restarts[group[0]]))), generator=generator,
             keep_fhist=statistics,
         )
@@ -422,7 +449,7 @@ def fit_multi(
 
     best_trees = np.asarray([(done[j]["best_cp"] + 1) * step_size for j in range(n_resp)], np.int64)
     budget = int(max(step_size, -(-best_trees.max() // step_size) * step_size))
-    res = _final_fits_global(
+    res = _final_fits(
         x, ycols.T, best_trees, budget=budget, n_splits=tree_complexity, lr_vec=lr_used,
         bag_fraction=bag_fraction, min_leaf=min_leaf, n_bins=n_bins, with_deviance=True,
         emit_trees=True, bags=_stage_bags(bags, ("final", budget)), generator=generator, step_size=step_size,
@@ -504,7 +531,7 @@ def _cv_deviance_curve(
     train_w = (sel[None, :] != fold_ids[:, None]).to(f32) * w[None, :]
     test_w = (sel[None, :] == fold_ids[:, None]).to(f32) * w[None, :]
     edges_k = make_bins_masked(x, train_w, n_bins)                             # (K, p, nb - 1)
-    xb_k = torch.stack([bin_data(x, e) for e in edges_k])                      # (K, n, p)
+    xb_k = bin_data(x, edges_k)                                                # (K, n, p)
     tables = prepare_bins(xb_k, n_bins)
     y_rep = y[None, :].expand(n_folds, n).contiguous()
     f0 = f0_init(y_rep, train_w, family, offset=offset)                        # (K,)

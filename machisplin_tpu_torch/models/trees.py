@@ -12,7 +12,11 @@ random forest's CART trees level-wise in the heap layout instead.
 ``grow_bestfirst_trees_cumshared`` grows K trees at once from cumulative
 split statistics, over one bin table or one per tree, with gbm's monotone
 check; it is the plain version of kernel K2 (``ops/tree_grow.py``,
-``csrc/tree_grow.cu``).  ``make_bins_masked`` bins a CV fold on its own
+``csrc/tree_grow.cu``).  ``grow_bestfirst_trees_shared`` grows K trees on
+one table from per-bin histograms with leaves from the final rows, and
+``assigned_predict_batched`` reads their leaves: the JAX package's
+shared-bins grower, kept as a plain version to compare with (the port's
+gbm.step grows every tree on K2).  ``make_bins_masked`` bins a CV fold on its own
 training rows, and ``route_bins`` finds each training row's node in grown
 trees by its bins.  ``tree_assign`` and ``forest_predict`` route points
 through the trees one level at a time, the plain oracle of kernel K3
@@ -26,9 +30,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = [
-    "Tree", "make_bins", "make_bins_masked", "bin_data", "flat_bin_cum_onehot", "edges_lookup",
-    "grow_bestfirst_trees_cumshared", "route_bins", "grow_level_trees", "draw_mtry_scores", "assigned_predict",
-    "tree_assign", "forest_predict",
+    "Tree", "make_bins", "make_bins_masked", "bin_data", "flat_bin_onehot", "flat_bin_cum_onehot", "edges_lookup",
+    "grow_bestfirst_trees_cumshared", "grow_bestfirst_trees_shared", "assigned_predict_batched", "route_bins",
+    "grow_level_trees", "draw_mtry_scores", "assigned_predict", "tree_assign", "forest_predict",
 ]
 
 
@@ -92,9 +96,20 @@ def make_bins_masked(x, w, n_bins: int = 64) -> torch.Tensor:
 
 def bin_data(x, edges) -> torch.Tensor:
     """Bin index per (sample, feature): the number of edges strictly below x,
-    (n, p) int64."""
+    (n, p) int64 for edges (p, nb - 1), or (C, n, p) for C tables' edges
+    (C, p, nb - 1)."""
     x = torch.as_tensor(x)
+    if edges.ndim == 3:
+        return torch.stack([bin_data(x, e) for e in edges])
     return (x[:, :, None] > edges[None, :, :]).sum(dim=2)
+
+
+def flat_bin_onehot(xb, nb: int) -> torch.Tensor:
+    """(n, p * nb) bfloat16 one-hot of (n, p) bins: 1 iff ``xb[i, f] == b``
+    (0/1 is exact in bfloat16)."""
+    n, p = xb.shape
+    b = torch.arange(nb, dtype=xb.dtype, device=xb.device)
+    return (xb[:, :, None] == b).to(torch.bfloat16).reshape(n, p * nb)
 
 
 def flat_bin_cum_onehot(xb, nb: int) -> torch.Tensor:
@@ -151,6 +166,68 @@ def _best_splits_cum(clw, clwy, tw, twy, min_leaf, feat_mask=None, monotone=None
     flat = flat.reshape(r, p * nb)
     best = torch.argmax(flat, dim=1)
     return flat.max(dim=1).values, best // nb, best % nb
+
+
+def _best_splits(hw, hwy, min_leaf):
+    """Best (feature, bin) per row of (R, p, nb) per-bin histograms: their
+    cumulative sums, with the totals from the last bin, through
+    ``_best_splits_cum``."""
+    c2 = torch.cumsum(torch.stack([hw, hwy]), dim=3)
+    cw, cwy = c2[0], c2[1]
+    return _best_splits_cum(cw, cwy, cw[:, :, -1:], cwy[:, :, -1:], min_leaf)
+
+
+def grow_bestfirst_trees_shared(xb, ys, ws, *, n_splits: int, min_leaf: float, bin1h):
+    """K best-first regression trees at once on ONE shared (n, p) bin table
+    from per-bin histograms (``bin1h`` its ``flat_bin_onehot``): the JAX
+    package's ``grow_bestfirst_trees_shared``.  ``ys`` (K, n) targets, ``ws``
+    (K, n) row weights.  Each step splits the node of largest gain (ties:
+    lowest slot) if that gain exceeds 1e-9; the left and parent histograms
+    come from one ``_hist_cum`` contraction, the right child's by
+    subtraction; leaf values are swy / max(sw, 1e-12) over each node's final
+    rows.  Returns (value (K, 2J+1), cur (K, n))."""
+    n, p = xb.shape
+    k_chains = ws.shape[0]
+    dtype, dev = ys.dtype, ys.device
+    n_total = 2 * n_splits + 1
+    nb = bin1h.shape[1] // p
+    neg = torch.full((), -torch.inf, dtype=dtype, device=dev)
+    iota_nodes = torch.arange(n_total, device=dev)
+    rows = torch.arange(k_chains, device=dev)
+    wys = ws * ys
+    root = _hist_cum(torch.cat([ws, wys], dim=0), bin1h)
+    g0, f0, b0 = _best_splits(root[:k_chains].reshape(k_chains, p, nb), root[k_chains:].reshape(k_chains, p, nb),
+                              min_leaf)
+    node_gain = torch.full((k_chains, n_total), -torch.inf, dtype=dtype, device=dev)
+    node_feat = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
+    node_bin = torch.zeros((k_chains, n_total), dtype=torch.int64, device=dev)
+    node_gain[:, 0], node_feat[:, 0], node_bin[:, 0] = g0, f0, b0
+    cur = torch.zeros((k_chains, n), dtype=torch.int64, device=dev)
+    xbt = xb.T
+    for k in range(n_splits):
+        q = torch.argmax(node_gain, dim=1)
+        ok = node_gain[rows, q] > 1e-9
+        bfq, bbq = node_feat[rows, q], node_bin[rows, q]
+        lid, rid = 2 * k + 1, 2 * k + 2
+        in_parent = ok[:, None] & (cur == q[:, None])
+        go_left = in_parent & (xbt[bfq] <= bbq[:, None])
+        lm, pm = go_left.to(dtype), in_parent.to(dtype)
+        h = _hist_cum(torch.cat([ws * lm, wys * lm, ws * pm, wys * pm], dim=0), bin1h)
+        hl_w, hl_wy = h[:k_chains], h[k_chains : 2 * k_chains]
+        hp_w, hp_wy = h[2 * k_chains : 3 * k_chains], h[3 * k_chains :]
+        cw = torch.cat([hl_w, hp_w - hl_w], dim=0).reshape(2 * k_chains, p, nb)
+        cwy = torch.cat([hl_wy, hp_wy - hl_wy], dim=0).reshape(2 * k_chains, p, nb)
+        cg, cf, cb = _best_splits(cw, cwy, min_leaf)
+        node_gain = torch.where(iota_nodes[None, :] == q[:, None], neg, node_gain)
+        node_gain[:, lid] = torch.where(ok, cg[:k_chains], neg)
+        node_gain[:, rid] = torch.where(ok, cg[k_chains:], neg)
+        node_feat[:, lid], node_feat[:, rid] = cf[:k_chains], cf[k_chains:]
+        node_bin[:, lid], node_bin[:, rid] = cb[:k_chains], cb[k_chains:]
+        cur = torch.where(in_parent, torch.where(go_left, lid, rid), cur)
+    node1h = (cur[:, :, None] == iota_nodes).to(dtype)                        # (K, n, N)
+    sw = torch.einsum("knt,kn->kt", node1h, ws)
+    swy = torch.einsum("knt,kn->kt", node1h, wys)
+    return swy / sw.clamp_min(1e-12), cur
 
 
 def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float, bin_cum1h,
@@ -361,6 +438,10 @@ def assigned_predict(value, cur) -> torch.Tensor:
     """Leaf values of assigned nodes: ``value[t, cur[t, i]]`` for (T, N)
     values and (T, n) node ids."""
     return value.gather(1, cur)
+
+
+# the JAX package's name for the K-batched lookup; the same function here
+assigned_predict_batched = assigned_predict
 
 
 def route_bins(xb, feat, thr_bin, internal, left, right, depth: int) -> torch.Tensor:

@@ -361,6 +361,7 @@ def mltps(
     folds=None,
     generator: torch.Generator | None = None,
     device="cuda",
+    log_file: str | None = None,
     timer: PhaseTimer | None = None,
 ) -> list[LayerResult]:
     """Main entry point; see the module docstring.
@@ -373,7 +374,15 @@ def mltps(
     ``trouble``: the reference's BRT-only switch — every response keeps
     "b" at weight 1 whatever the weight search finds (V73:446).
     ``device``: where the run happens (``"cuda"`` raises without a GPU).
-    ``timer`` collects per-phase durations."""
+    ``log_file`` tees the run's progress to a log file (the reference's
+    MachiSplin.LOG.txt sink, V73:200); ``timer`` collects per-phase
+    durations."""
+    if log_file is not None:
+        from ..utils.logging import run_log
+
+        with run_log(log_file):
+            return mltps(int_values, covar_ras, tps, smooth_outputs_only, trouble, config=config, folds=folds,
+                         generator=generator, device=device, timer=timer)
     dev = resolve_device(device)
     timer = timer or PhaseTimer()
     config = config or MLTPSConfig()

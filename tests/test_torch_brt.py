@@ -207,7 +207,7 @@ def test_fit_outer_batched_matches_jax():
     y2 = np.stack([y, y]).astype(np.float32)
     jr = jgbm._final_fits_global(jax.random.split(kfinal, 2), jnp.asarray(x32), jnp.asarray(y2), jnp.asarray(jbest),
                                  sample_w=jnp.asarray(w_outer), **kw)
-    tr = tgbm._final_fits_global(torch.as_tensor(x32), torch.as_tensor(y2), tbest, sample_w=torch.as_tensor(w_outer),
+    tr = tgbm._final_fits(torch.as_tensor(x32), torch.as_tensor(y2), tbest, sample_w=torch.as_tensor(w_outer),
                                  bags=bags(("final", budget)), **kw)
     np.testing.assert_array_equal(np.asarray(jr["train_fit"]), np.asarray(jpred))
     np.testing.assert_array_equal(tr["train_fit"].numpy(), tpred.numpy())

@@ -555,3 +555,71 @@ def test_k3_on_a_random_forest_slot_loop(cuda):
     for j in range(2):
         routed = ttrees.forest_predict(ttrees.Tree(*(a[j] for a in st.trees)), cells[:3000], 6)
         assert float((batched[j] - routed).abs().max()) <= 1e-5 * float(y[j].abs().max())
+
+
+def test_geotiff_round_trip_of_a_cuda_raster(cuda, tmp_path):
+    """A float32 raster on the card written (deflate) and read back onto the
+    card: bit for bit, NaN included, on the same grid."""
+    import machisplin_tpu_torch as mtt
+
+    rng = np.random.default_rng(7)
+    a = torch.as_tensor((rng.standard_normal((2, 301, 517)) * 50).astype(np.float32), device=cuda)
+    a[:, 10:20, 30:40] = float("nan")
+    g = tgrid.GridSpec(nrows=301, ncols=517, xmin=-77.7, ymax=-5.8, dx=0.00083, dy=0.00083)
+    for data in (a[0], a):
+        path = str(tmp_path / f"r{data.ndim}.tif")
+        mtt.write_geotiff_file(path, tgrid.Raster(data, g))
+        back = mtt.read_geotiff(path, device="cuda")
+        assert back.data.device.type == "cuda" and vars(back.grid) == vars(g)
+        assert torch.equal(back.data.view(torch.int32), data.view(torch.int32))
+
+
+def test_tiles_merge_on_the_card_matches_cpu(cuda):
+    """Feathered 2 x 2 and 3 x 2 merges of float32 tiles on the card against
+    the same merge of their CPU copies: within 1e-6 of max |surface|, NaN
+    where NaN."""
+    import machisplin_tpu_torch as mtt
+
+    cov = mtt.synthetic_covariates(downsample=4, device="cuda")
+    for ncol, nrow in ((2, 2), (3, 2)):
+        ts = mtt.tiles_create(cov, mtt.load_sampling(), out_ncol=ncol, out_nrow=nrow)
+        tiles = [tgrid.Raster(torch.sin(r.data[0] / 500.0) + 0.1 * i, r.grid) for i, r in enumerate(ts.rast)]
+        got = mtt.tiles_merge(tiles, ts.full_grid, in_ncol=ncol, in_nrow=nrow)
+        want = mtt.tiles_merge([t.to("cpu") for t in tiles], ts.full_grid, in_ncol=ncol, in_nrow=nrow)
+        assert got.data.device.type == "cuda"
+        g, w = got.data.cpu().numpy(), want.data.numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * np.nanmax(np.abs(w)), equal_nan=True)
+
+
+def test_k2_cycle_with_shared_bins_tables_matches_plain(cuda):
+    """The shared-bins layout of the batched gbm.step: 4 outer folds' tables
+    (each binned on its training rows) repeated over their 5 inner chains,
+    one 50-tree cycle against the plain version on the same tables: trees
+    part only at near-ties (relative gain gap <= 1e-5), and f of chains
+    whose trees all agree within 1e-5 of the residuals."""
+    from machisplin_tpu_torch.models import gbm_step
+
+    rng = np.random.default_rng(11)
+    n, p, nb, f_outer, k = 813, 5, 64, 4, 5
+    x = torch.as_tensor(rng.uniform(0, 1, (n, p)).astype(np.float32), device=cuda)
+    y1 = (2 * x[:, 0] + torch.sin(4 * x[:, 1]) + 0.1 * torch.randn(n, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))).float()
+    outer = torch.as_tensor((rng.uniform(size=(f_outer, n)) < 0.9).astype(np.float32), device=cuda)
+    sel = torch.as_tensor(rng.integers(0, k, (f_outer, n)), device=cuda)
+    w = ((sel[:, None, :] != torch.arange(k, device=cuda)[None, :, None]).float() * outer[:, None, :]).reshape(-1, n)
+    edges, xb, tables = gbm_step._grow_inputs(x, nb, outer, repeat=k)
+    assert tuple(xb.shape) == (f_outer, n, p) and tuple(tables.xbt.shape) == (f_outer * k, p, n)
+    xb_c = xb.repeat_interleave(k, 0)
+    y = y1[None].expand(f_outer * k, n).contiguous()
+    f = ((w * y).sum(1) / w.sum(1))[:, None].expand(-1, n).contiguous()
+    bags = torch.as_tensor((rng.uniform(size=(50, f_outer * k, n)) < 0.5).astype(np.float32), device=cuda) * w
+    kw = dict(n_splits=25, nb=nb, min_leaf=10.0, lr=0.01)
+    before = dict(ttgrow.LAUNCHES)
+    got = ttgrow.gbm_tree_cycle(tables, y, f, bags, emit_tree=True, **kw)
+    torch.cuda.synchronize()
+    assert {k_: ttgrow.LAUNCHES[k_] - before[k_] for k_ in before} == {"tree_grow": 1, "tree_grow_trees": 50}
+    agree = ttgrow.cycle_agreement(xb_c, y, f, bags, got, **kw)
+    assert all(gap <= 1e-5 for _, _, gap in agree["gaps"]), agree["gaps"]
+    assert agree["identical_chains"] > 0
+    assert agree["max_abs_err"] <= 1e-5 * agree["resid_scale"]

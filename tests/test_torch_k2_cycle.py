@@ -266,7 +266,7 @@ def test_final_fits_cycles_match_the_per_tree_loop(step_size):
     kw = dict(budget=8, n_splits=3, lr_vec=np.array([0.3, 0.1]), min_leaf=4.0, n_bins=NB)
     bags = _bag_stream(6, (2, 80))
     want = _finals_per_tree(x, ycols, np.array([8, 5]), bags, sample_w=sample_w, **kw)
-    got = tgbm._final_fits_global(x, ycols, np.array([8, 5]), bag_fraction=0.5, sample_w=sample_w,
-                                  with_deviance=True, emit_trees=True, bags=bags, step_size=step_size, **kw)
+    got = tgbm._final_fits(x, ycols, np.array([8, 5]), bag_fraction=0.5, sample_w=sample_w,
+                           with_deviance=True, emit_trees=True, bags=bags, step_size=step_size, **kw)
     for key, val in want.items():
         torch.testing.assert_close(got[key], val, rtol=0, atol=0, msg=key)

@@ -71,12 +71,12 @@ def test_mltps_unported_pool_raises():
     ``batch_final_brt=False`` (once refused) runs each response's BRT final
     through ``gbm_step.fit`` and agrees with the JAX package's run within the
     BRT band (``test_torch_brt.R2_BAND``: the bags are torch draws here).
-    What is still unported is the batched drivers' ``global_bins=False``
-    (the shared- and per-fold-bins branches), which raises naming the next
-    slice."""
+    The batched drivers' ``global_bins=False`` (the shared- and
+    per-fold-bins branches, once refused) runs now; what is still unported
+    on the letters' paths is MARS beyond degree 1, which raises."""
     from machisplin_tpu.ensemble import CVConfig as JCVConfig
     from machisplin_tpu_torch.ensemble.cv import CVConfig as TCVConfig
-    from machisplin_tpu_torch.models import gbm_step as tgbm
+    from machisplin_tpu_torch.models import gbm_step as tgbm, mars as tmars
     from test_torch_brt import R2_BAND
 
     cov = mtt.synthetic_covariates(downsample=48, device="cpu")
@@ -94,5 +94,10 @@ def test_mltps_unported_pool_raises():
         assert abs(t.summary["r2 ensemble:"] - j.summary["r2 ensemble:"]) <= R2_BAND, t.name
         assert np.isfinite(t.ensemble.data.numpy()).all()
     x = torch.rand((40, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="shared and per-fold bins branches come with a later slice"):
-        tgbm.fit_multi(x, torch.rand((40, 2), dtype=torch.float64), global_bins=False, **brt)
+    for shared in (True, False):
+        res = tgbm.fit_multi(x, torch.rand((40, 2), dtype=torch.float64), global_bins=False, shared_bins=shared,
+                             generator=torch.Generator().manual_seed(0), **brt)
+        assert [r.best_trees % brt["step_size"] for r in res] == [0, 0]
+        assert all(torch.isfinite(r.final.train_fit).all() for r in res)
+    with pytest.raises(NotImplementedError, match="MARS degree > 1 is not ported yet"):
+        tmars.fit(x, torch.rand(40, dtype=torch.float64), degree=2)

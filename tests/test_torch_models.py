@@ -254,7 +254,9 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.optim.lbfgs, machisplin_tpu_torch.models.nn, "
         "machisplin_tpu_torch.ops.svm_sweep, machisplin_tpu_torch.models.svm, machisplin_tpu_torch.models.rf, "
         "machisplin_tpu_torch.pipeline.importance, machisplin_tpu_torch.models.families, "
-        "machisplin_tpu_torch.models.deviance; "
+        "machisplin_tpu_torch.models.deviance, machisplin_tpu_torch.io.geotiff, "
+        "machisplin_tpu_torch.io.overviews, machisplin_tpu_torch.io.writers, machisplin_tpu_torch.io.checkpoint, "
+        "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
