@@ -118,6 +118,33 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   finals' shape, and a 50-tree cycle of each layout timed, the shared and
   per-fold ones held against K2's plain version (TIE_GAP).
 
+* ``tps_config4``: BASELINE config 4, the north star's 100,000 stations
+  over a 10,000 x 10,000 grid (``benchmarks/run_configs.py``'s draws):
+  ``tps_fit_auto`` routes to the Nystrom fit with 4,096 landmarks (first
+  call and warm, and the fit's steps), fitted r² against the noise-free
+  signal; the fit at the recorder's numpy landmarks held to the JAX
+  package's (``tools/record_jax_nystrom.py``: lambda, GCV, effective df,
+  2,000 stations' fitted values, 4,096 cells of the surface); the 10^8
+  cells in 1,536-row panels on K1 with a device-side checksum and one
+  synchronise; K1 against its plain version on one panel;
+* ``tps_config3``: BASELINE config 3, 10,000 stations x 19 responses:
+  Nystrom with 2,048 landmarks (held to the JAX package's lambdas and
+  fitted values), the first 8,192 stations through the exact device fit,
+  3,000 through the host float64 fit (held to the card's exact float64
+  fit and to the JAX package's host fit), ``torch.linalg.eigh`` of a
+  symmetric 8,192-row matrix timed in float32 and float64 with its
+  workspace (the exact path's knot limit), the 19 surfaces over 3,163 x
+  3,163 cells on K1 (3 launches), K1 against its plain version at R = 19;
+* ``tps_config5``: BASELINE config 5, 500,000 stations, 4,096 landmarks,
+  the 31,623 x 31,623 surface streamed in 2,048-row bands, K1 against its
+  plain version on one band, fitted r² against the signal;
+* ``mltps_ext_f64``: ``mltps`` on the full grid in float64 with the smooth
+  GAM, MARS at degree 2, the sweep weight search and the tile loop, held
+  to the JAX package's run (``tools/record_jax_ext_r2.py``);
+* ``rf_finals_unmerged``: the RF pool at downsample 4 with
+  ``batch_final_rf`` False and True from one seed: the same surfaces, K3
+  launches of each.
+
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero; so does a run without a CUDA device, or outside a checkout.
@@ -2090,6 +2117,584 @@ def phase_cv_b_perfold():
     return out
 
 
+# The large-station TPS path (BASELINE configs 3-5).  The JAX package's fits
+# at numpy-drawn landmarks come from
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_nystrom.py > tools/record_jax_nystrom.json`
+# (float32, as the configs' coordinates).  Stated before the first card run:
+# lambda on the same point of the 128-point GCV grid or the next one
+# (float32 cross-products summed in another order can move a near-tie);
+# GCV and effective df within NYS_REL; fitted values within NYS_FIT_TOL and
+# surface cells within NYS_SURF_TOL of the response range.
+NYS_LAM_DECADES = 16.0 / 127.0 + 1e-6
+NYS_REL = 1e-2
+NYS_FIT_TOL = 1e-3
+NYS_SURF_TOL = 2e-3
+# the host float64 fit against the JAX package's (float32 outputs) and the
+# card's exact float64 fit of the same 3,000 stations
+HOST_LAM_RTOL = 1e-5
+HOST_DEV_LAM_RTOL = 1e-4
+HOST_DEV_FIT_TOL = 1e-6
+SIGNAL_R2_MIN = 0.99   # fitted values against the noise-free signal
+CONFIG4 = {"panel_rows": 1536, "side": 10_000, "landmarks": 4096}
+CONFIG3 = {"side": 3163, "landmarks": 2048, "exact": 8192, "host": 3000, "host_limit": 2048}
+CONFIG5 = {"stations": 500_000, "side": 31_623, "band_rows": 2048, "landmarks": 4096}
+NYS_CHUNK = 16384      # the recorder's chunk
+
+# The JAX package's mltps with the extension options (EXT_CONFIG: smooth GAM,
+# MARS degree 2 with penalty 3, the sweep weight search, the tile loop) on
+# the full grid in float64 with folds from numpy_folds(813, 10, 2, seed=0),
+# from `PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_jax_ext_r2.py 1`.
+# At its default key the JAX package's sweep collapses to the all-zero
+# weights for bio_12 in its first zoom round (its r² ensemble NaN): that
+# response is held to the candidate the sweep had picked before it and to
+# the L-BFGS-B search.
+JAX_REFERENCE_EXT = {
+    "bio_1": {"kept": "gm", "weights": [0.16559567431263794, 0.7079099958761527],
+              "r2_ensemble": 0.8640014163730194, "r2_final": 0.9944916398648972, "aicc": "m", "lbfgsb": "gm",
+              "cv_rss": [367838.32533441717, 261082.0925140633], "sweep_collapse_round": None,
+              "sweep_before_collapse": [0.16559567431263794, 0.7079099958761527]},
+    "bio_12": {"kept": "g", "weights": [0.0, 0.0], "r2_ensemble": float("nan"), "r2_final": 1.0, "aicc": "m",
+               "lbfgsb": "gm", "cv_rss": [52139201.79313878, 35165227.38022414], "sweep_collapse_round": 0,
+               "sweep_before_collapse": [0.03957906582694237, 0.5404866370528085]},
+}
+CV_RSS_RTOL = 1e-6
+# the sweep's weights against the JAX package's on the same draws: the
+# residual matrices agree to ~1e-15 (their sums of squares), so the same
+# candidates and perturbations are taken and the weights agree to round-off
+SWEEP_ATOL = 1e-9
+
+
+def _record_module(name: str):
+    """A recorder under tools/ (its draws; JAX is imported only inside its
+    record function)."""
+    return importlib.import_module(f"tools.{name}")
+
+
+def _nystrom_reference() -> dict:
+    with open(os.path.join("tools", "record_jax_nystrom.json")) as f:
+        return json.load(f)
+
+
+def _signal_r2(fitted, signal) -> float:
+    import numpy as np
+
+    fitted, signal = np.asarray(fitted, np.float64), np.asarray(signal, np.float64)
+    return float(1.0 - np.sum((fitted - signal) ** 2) / np.sum((signal - signal.mean()) ** 2))
+
+
+def _k1_bound_ms(cells: int, n_knots: int, n_resp: int) -> tuple:
+    """K1's least time for ``cells`` x ``n_knots`` at ``n_resp`` responses,
+    reckoned as phase_kernel_k1 does: (bound ms, "operations" or "bytes")."""
+    ops = cells * n_knots * (8 + 2 * n_resp)
+    nbytes = 4 * (n_resp * cells + 2 * n_knots + n_resp * n_knots + 3 * n_resp)
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _k1_against_plain(model, sub, block_rows: int) -> dict:
+    """K1 on ``sub`` against its plain version from the same float32 tables:
+    max error, tolerance (K1_TOL of max |surface|), CUDA-event ms of K1 (a
+    median of 5 after a warm-up) and of the plain version's one pass, and
+    the bound."""
+    import torch
+
+    from machisplin_tpu_torch.ops import tps_grid
+
+    tab = tps_grid.grid_tables(model, sub, torch.float32)
+    got = tps_grid.tps_grid_cuda(tab, sub)
+    # the plain version is timed on its one checking pass (seconds a band)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = tps_grid.tps_grid_plain(tab, sub, block_rows=block_rows)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    del got, want
+    ms = cuda_ms(lambda: tps_grid.tps_grid_cuda(tab, sub), reps=5)
+    n_resp, n_pad = tab.c.shape
+    bound, by = _k1_bound_ms(sub.ncell, n_pad, n_resp)
+    return {"rows": sub.nrows, "cols": sub.ncols, "knots_evaluated": n_pad, "responses": n_resp,
+            "max_abs_err": err, "max_abs_surface": scale, "tolerance": K1_TOL * scale, "ok": err <= K1_TOL * scale,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _lam_steps(got, want) -> float:
+    """|log10(got / want)| in decades, largest over responses."""
+    import numpy as np
+
+    return float(np.max(np.abs(np.log10(np.asarray(got, np.float64) / np.asarray(want, np.float64)))))
+
+
+def _stream_surface(model, grid, rows: int, cells=None):
+    """Predict ``grid`` in ``rows``-row panels on K1 with a device-side
+    checksum and one synchronise; ``cells`` (k, 2) row, col are gathered
+    from the panels as they pass.  Returns (seconds, checksum, gathered
+    (k,) or None, panels)."""
+    import torch
+
+    from machisplin_tpu_torch.ops.tps import tps_predict_grid
+
+    acc = torch.zeros((), dtype=torch.float64, device="cuda")
+    picked, panels = [], 0
+    if cells is not None:
+        rc = torch.as_tensor(cells, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r0 in range(0, grid.nrows, rows):
+        sub = grid.subgrid(r0, min(r0 + rows, grid.nrows), 0, grid.ncols)
+        surf = tps_predict_grid(model, sub)
+        acc += torch.nansum(surf, dtype=torch.float64)
+        if cells is not None:
+            sel = (rc[:, 0] >= r0) & (rc[:, 0] < r0 + sub.nrows)
+            picked.append((torch.nonzero(sel).flatten(), surf[rc[sel, 0] - r0, rc[sel, 1]]))
+        panels += 1
+    checksum = float(acc)
+    dt = time.perf_counter() - t0
+    gathered = None
+    if cells is not None:
+        gathered = torch.empty(len(cells), dtype=torch.float32, device="cuda")
+        for idx, vals in picked:
+            gathered[idx] = vals
+        gathered = gathered.cpu().numpy()
+    return dt, checksum, gathered, panels
+
+
+def phase_tps_config4(ref: dict) -> dict:
+    """BASELINE config 4, the north star's 100k stations over 10^8 cells:
+    ``tps_fit_auto`` routes to Nystrom with 4,096 landmarks; the fit at the
+    recorder's numpy landmarks against the JAX package's; the 10^8-cell
+    surface in 1,536-row panels on K1; K1 against its plain version on one
+    panel."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.grid import GridSpec
+    from machisplin_tpu_torch.ops.nystrom import nystrom_tps_fit
+    from machisplin_tpu_torch.ops.tps import _auto_route, tps_fit_auto
+    from machisplin_tpu_torch.utils.timing import PhaseTimer
+
+    rec = _record_module("record_jax_nystrom")
+    jref = ref["config4"]
+    t0 = time.perf_counter()
+    coords_np, y_np = rec.config4_data()
+    n = len(coords_np)
+    coords = torch.as_tensor(coords_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    signal = np.sin(6 * coords_np[:, 0].astype(np.float64)) * np.cos(5 * coords_np[:, 1].astype(np.float64))
+    failures = []
+    route = _auto_route(n)
+    if route != ("nystrom", CONFIG4["landmarks"]):
+        failures.append(f"tps_fit_auto routes {n} stations to {route}, expected Nystrom with 4096 landmarks")
+    _reset_launches()
+    solve_s = []
+    for _ in range(2):                       # first call, then warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model = tps_fit_auto(coords, y, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t1)
+    timer = PhaseTimer()
+    nystrom_tps_fit(coords, y, m=CONFIG4["landmarks"], generator=torch.Generator().manual_seed(0), timer=timer)
+    r2_signal = _signal_r2(model.fitted.cpu().numpy(), signal)
+    if tuple(model.knots.shape) != (CONFIG4["landmarks"], 2):
+        failures.append(f"the auto fit has {tuple(model.knots.shape)} knots")
+    if not r2_signal >= SIGNAL_R2_MIN:
+        failures.append(f"the card's own landmarks fit the signal to r2 {r2_signal}")
+
+    # the recorder's numpy landmarks: against the JAX package
+    idx = rec.landmark_idx(n, CONFIG4["landmarks"])
+    pm = nystrom_tps_fit(coords, y, landmarks=coords[torch.as_tensor(idx, device="cuda")], chunk=NYS_CHUNK)
+    span = float(np.ptp(y_np))
+    st = rec.fixed_stations(n, 2000)
+    fit_err = float(np.abs(pm.fitted.cpu().numpy()[st] - np.asarray(jref["fitted"])).max())
+    parity = {
+        "lam": float(pm.lam), "lam_jax": jref["lam"], "lam_decades": _lam_steps(float(pm.lam), jref["lam"]),
+        "gcv": float(pm.gcv), "gcv_jax": jref["gcv"], "eff_df": float(pm.eff_df), "eff_df_jax": jref["eff_df"],
+        "fitted_max_err": fit_err, "fitted_tol": NYS_FIT_TOL * span,
+    }
+    if parity["lam_decades"] > NYS_LAM_DECADES:
+        failures.append(f"config4 lambda {parity['lam']} vs the JAX package's {jref['lam']}")
+    for k in ("gcv", "eff_df"):
+        if not abs(parity[k] - jref[k]) <= NYS_REL * abs(jref[k]):
+            failures.append(f"config4 {k} {parity[k]} vs the JAX package's {jref[k]}")
+    if not fit_err <= NYS_FIT_TOL * span:
+        failures.append(f"config4 fitted values {fit_err} from the JAX package's (tol {NYS_FIT_TOL * span})")
+
+    side = CONFIG4["side"]
+    grid = GridSpec(nrows=side, ncols=side, xmin=0.0, ymax=1.0, dx=1.0 / side, dy=1.0 / side)
+    cells = rec.fixed_cells(side, 4096)
+    launches0 = _read_launches()["tps_grid"]
+    predict_s, checksum, surf_cells, panels = _stream_surface(pm, grid, CONFIG4["panel_rows"], cells)
+    launches = _read_launches()              # the path's own, before the check's launches
+    k1_launches = launches["tps_grid"] - launches0
+    surf_err = float(np.abs(surf_cells - np.asarray(jref["surface"])).max())
+    parity.update(surface_max_err=surf_err, surface_tol=NYS_SURF_TOL * span)
+    if not surf_err <= NYS_SURF_TOL * span:
+        failures.append(f"config4 surface cells {surf_err} from the JAX package's (tol {NYS_SURF_TOL * span})")
+    if not np.isfinite(checksum):
+        failures.append("config4 surface is not finite")
+    if k1_launches != panels:
+        failures.append(f"K1 launched {k1_launches} times for {panels} panels")
+    panel = _k1_against_plain(pm, grid.subgrid(0, CONFIG4["panel_rows"], 0, side), block_rows=4)
+    if not panel["ok"]:
+        failures.append(f"K1 disagrees with its plain version at 4096 knots: {panel['max_abs_err']}")
+    whole_bound, _ = _k1_bound_ms(grid.ncell, panel["knots_evaluated"], 1)
+    res = {
+        "phase": "tps_config4", "seconds": time.perf_counter() - t0, "stations": n, "route": list(route),
+        "landmarks": CONFIG4["landmarks"], "solve_first_s": solve_s[0], "solve_warm_s": solve_s[1],
+        "solve_steps_s": timer.as_dict(), "r2_signal": r2_signal, "parity": parity,
+        "grid": [side, side], "cells": grid.ncell, "panel_rows": CONFIG4["panel_rows"], "panels": panels,
+        "predict_s": predict_s, "mcells_per_s": grid.ncell / predict_s / 1e6, "checksum": checksum,
+        "k1_launches": k1_launches, "knots_evaluated": panel["knots_evaluated"],
+        "k1_panel": panel, "k1_grid_bound_ms": whole_bound, "launches": launches,
+    }
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_tps_config3(ref: dict) -> dict:
+    """BASELINE config 3: 10,000 stations x 19 responses through
+    ``tps_fit_auto`` (Nystrom, 2,048 landmarks), held to the JAX package at
+    the recorder's landmarks; the first 8,192 stations through the exact
+    device path; 3,000 through the host float64 path (``method="exact"``
+    above ``max_device_knots``), held to the card's exact float64 fit and
+    the JAX package's host fit; all 19 surfaces over 3,163 x 3,163 cells on
+    K1 (3 launches a call: 8 + 8 + 3 responses)."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.grid import GridSpec
+    from machisplin_tpu_torch.ops.nystrom import nystrom_tps_fit
+    from machisplin_tpu_torch.ops.tps import _auto_route, tps_fit, tps_fit_auto, tps_predict_grid
+
+    rec = _record_module("record_jax_nystrom")
+    jref = ref["config3"]
+    t0 = time.perf_counter()
+    coords_np, ys_np = rec.config3_data()
+    n, n_resp = ys_np.shape
+    coords = torch.as_tensor(coords_np, device="cuda")
+    ys = torch.as_tensor(ys_np, device="cuda")
+    failures, fits = [], {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        fits[name] = {"seconds": time.perf_counter() - t1}
+        return out
+
+    _reset_launches()
+    route = _auto_route(n)
+    auto = timed("nystrom_auto", lambda: tps_fit_auto(coords, ys, generator=torch.Generator().manual_seed(0)))
+    if route != ("nystrom", CONFIG3["landmarks"]) or tuple(auto.knots.shape) != (CONFIG3["landmarks"], 2):
+        failures.append(f"config3 routes to {route} with {tuple(auto.knots.shape)} knots")
+    idx = torch.as_tensor(rec.landmark_idx(n, CONFIG3["landmarks"]), device="cuda")
+    pm = timed("nystrom_jax_landmarks", lambda: nystrom_tps_fit(coords, ys, landmarks=coords[idx], chunk=NYS_CHUNK))
+    st = rec.fixed_stations(n, 200)
+    span = np.ptp(ys_np, axis=0)
+    fit_err = np.abs(pm.fitted.cpu().numpy()[st] - np.asarray(jref["fitted"])) / span
+    fits["nystrom_jax_landmarks"].update(lam_decades=_lam_steps(pm.lam.cpu().numpy(), jref["lam"]),
+                                         fitted_max_err_of_range=float(fit_err.max()))
+    if fits["nystrom_jax_landmarks"]["lam_decades"] > NYS_LAM_DECADES:
+        failures.append(f"config3 lambdas {pm.lam.tolist()} vs the JAX package's {jref['lam']}")
+    if not fit_err.max() <= NYS_FIT_TOL:
+        failures.append(f"config3 fitted values {fit_err.max()} of the range from the JAX package's")
+
+    ne = CONFIG3["exact"]
+    exact = timed("exact_device", lambda: tps_fit_auto(coords[:ne], ys[:ne]))
+    fits["exact_device"].update(route=_auto_route(ne)[0], dtype=str(exact.c.dtype),
+                                lam_range=[float(exact.lam.min()), float(exact.lam.max())])
+    if _auto_route(ne)[0] != "exact" or tuple(exact.c.shape) != (ne, n_resp) or not torch.isfinite(exact.c).all():
+        failures.append("config3 exact device fit failed")
+    nh = CONFIG3["host"]
+    host = timed("exact_host", lambda: tps_fit_auto(coords[:nh], ys[:nh], method="exact",
+                                                      max_device_knots=CONFIG3["host_limit"]))
+    dev64 = timed("exact_device_f64", lambda: tps_fit(coords[:nh].double(), ys[:nh].double()))
+    host_lam, dev_lam = host.lam.double().cpu().numpy(), dev64.lam.cpu().numpy()
+    host_fit_err = float((host.fitted.double() - dev64.fitted).abs().max().cpu() / float(span.max()))
+    fits["exact_host"].update(
+        route=_auto_route(nh, "exact", CONFIG3["host_limit"])[0], device=str(host.c.device),
+        lam_rel_to_jax=float(np.max(np.abs(host_lam / np.asarray(jref["host_lam"]) - 1))),
+        lam_rel_to_device_f64=float(np.max(np.abs(host_lam / dev_lam - 1))), fitted_err_to_device_f64=host_fit_err)
+    if _auto_route(nh, "exact", CONFIG3["host_limit"])[0] != "host" or host.c.device.type != "cuda":
+        failures.append("config3 host fit did not route to the host or return to the card")
+    if not fits["exact_host"]["lam_rel_to_jax"] <= HOST_LAM_RTOL:
+        failures.append(f"config3 host lambdas {host_lam} vs the JAX package's {jref['host_lam']}")
+    if not (fits["exact_host"]["lam_rel_to_device_f64"] <= HOST_DEV_LAM_RTOL and host_fit_err <= HOST_DEV_FIT_TOL):
+        failures.append(f"config3 host fit against the card's float64 exact fit: {fits['exact_host']}")
+
+    # the card's eigh at the exact path's knot limit (MAX_DEVICE_EIGH_KNOTS,
+    # kept from the JAX package's TPU memory ceiling): time and workspace
+    eigh = {}
+    for dt in (torch.float32, torch.float64):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        a = torch.randn((ne, ne), generator=g, dtype=dt, device="cuda")
+        sym = 0.5 * (a + a.T)
+        del a
+        torch.linalg.eigh(sym[:64, :64])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.linalg.eigh(sym)
+        e1.record()
+        torch.cuda.synchronize()
+        eigh[str(dt).replace("torch.", "")] = {"n": ne, "ms": e0.elapsed_time(e1),
+                                               "workspace_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del sym
+
+    side = CONFIG3["side"]
+    grid = GridSpec(nrows=side, ncols=side, xmin=0.0, ymax=1.0, dx=1.0 / side, dy=1.0 / side)
+    launches0 = _read_launches()["tps_grid"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    surf = tps_predict_grid(pm, grid)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t1
+    launches = _read_launches()              # the path's own, before the check's launches
+    k1_launches = launches["tps_grid"] - launches0
+    if tuple(surf.shape) != (side, side, n_resp) or not torch.isfinite(surf).all():
+        failures.append("config3 surfaces are not finite (side, side, 19)")
+    if k1_launches != 3:
+        failures.append(f"K1 launched {k1_launches} times for 19 responses, expected 3 (8 + 8 + 3)")
+    del surf
+    panel = _k1_against_plain(pm, grid.subgrid(0, 64, 0, side), block_rows=4)
+    if not panel["ok"]:
+        failures.append(f"K1 disagrees with its plain version at 19 responses: {panel['max_abs_err']}")
+    whole_bound, _ = _k1_bound_ms(grid.ncell, panel["knots_evaluated"], n_resp)
+    res = {
+        "phase": "tps_config3", "seconds": time.perf_counter() - t0, "stations": n, "responses": n_resp,
+        "fits": fits, "eigh": eigh, "grid": [side, side], "cells": grid.ncell, "predict_s": predict_s,
+        "mcells_per_s": grid.ncell / predict_s / 1e6, "k1_launches": k1_launches, "k1_panel_64_rows": panel,
+        "k1_grid_bound_ms": whole_bound, "launches": launches,
+    }
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_tps_config5() -> dict:
+    """BASELINE config 5: 500,000 stations, ``tps_fit_auto`` (Nystrom, 4,096
+    landmarks), the ~10^9-cell surface streamed in 2,048-row bands on K1, K1
+    against its plain version on one band, the fit against the signal."""
+    import numpy as np
+    import torch
+
+    from machisplin_tpu_torch.grid import GridSpec
+    from machisplin_tpu_torch.ops.tps import _auto_route, tps_fit_auto
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)           # as benchmarks/run_configs.config5 draws them
+    n = CONFIG5["stations"]
+    coords_np = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    y_np = (np.sin(8 * coords_np[:, 0]) * np.cos(7 * coords_np[:, 1]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    coords = torch.as_tensor(coords_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    failures = []
+    route = _auto_route(n)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = tps_fit_auto(coords, y, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    signal = np.sin(8 * coords_np[:, 0].astype(np.float64)) * np.cos(7 * coords_np[:, 1].astype(np.float64))
+    r2_signal = _signal_r2(model.fitted.cpu().numpy(), signal)
+    if route != ("nystrom", CONFIG5["landmarks"]) or tuple(model.knots.shape) != (CONFIG5["landmarks"], 2):
+        failures.append(f"config5 routes to {route} with {tuple(model.knots.shape)} knots")
+    if not r2_signal >= SIGNAL_R2_MIN:
+        failures.append(f"config5 fits the signal to r2 {r2_signal}")
+    side = CONFIG5["side"]
+    grid = GridSpec(nrows=side, ncols=side, xmin=0.0, ymax=1.0, dx=1.0 / side, dy=1.0 / side)
+    predict_s, checksum, _, bands = _stream_surface(model, grid, CONFIG5["band_rows"])
+    launches = _read_launches()              # the path's own, before the check's launches
+    if launches["tps_grid"] != bands:
+        failures.append(f"K1 launched {launches['tps_grid']} times for {bands} bands")
+    if not np.isfinite(checksum):
+        failures.append("config5 surface is not finite")
+    band = _k1_against_plain(model, grid.subgrid(0, CONFIG5["band_rows"], 0, side), block_rows=2)
+    if not band["ok"]:
+        failures.append(f"K1 disagrees with its plain version on a config5 band: {band['max_abs_err']}")
+    whole_bound, _ = _k1_bound_ms(grid.ncell, band["knots_evaluated"], 1)
+    res = {
+        "phase": "tps_config5", "seconds": time.perf_counter() - t0, "stations": n, "route": list(route),
+        "solve_s": solve_s, "r2_signal": r2_signal, "grid": [side, side], "cells": grid.ncell,
+        "band_rows": CONFIG5["band_rows"], "bands": bands, "surface_s": predict_s,
+        "mcells_per_s": grid.ncell / predict_s / 1e6, "checksum": checksum, "k1_band": band,
+        "k1_grid_bound_ms": whole_bound, "launches": launches,
+    }
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_mltps_ext_f64() -> dict:
+    """mltps on the full grid in float64 with the extension options
+    (EXT_CONFIG of tools/record_jax_ext_r2.py) on the recorder's folds and
+    with the JAX package's sweep draws (the recorder's SWEEP_DRAWS), held
+    to the JAX package's run: each response's CV residuals (their sums of
+    squares per letter within CV_RSS_RTOL), ``optimize_weights_aicc`` on
+    the residual matrix picking the JAX package's subset, and the sweep on
+    that matrix ending at the JAX package's weights (SWEEP_ATOL) with its
+    kept letters and r² within R2_TOL.  Where the JAX package's sweep
+    collapsed to the all-zero weights (its ensemble NaN; the port's sweep
+    never takes them), the port's sweep run only to the round of that
+    collapse (the later rounds' perturbations zero) must reach the JAX
+    package's weights before it, and its full search is held to the
+    L-BFGS-B search on the same matrix: the JAX package's L-BFGS-B letters,
+    and an objective no more than 0.1 % above the port's L-BFGS-B
+    objective."""
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.cv import CVConfig
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.ensemble.weights import (
+        optimize_weights_aicc, optimize_weights_lbfgsb, optimize_weights_sweep,
+    )
+
+    rec = _record_module("record_jax_ext_r2")
+    pipe = importlib.import_module("machisplin_tpu_torch.pipeline.mltps")
+    t0 = time.perf_counter()
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    cov = mtt.Raster(cov.data.to(torch.float64), cov.grid, cov.names)
+    s = mtt.load_sampling()
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 2, seed=0)
+    config = pipe.MLTPSConfig(cv=CVConfig(gam=rec.SMOOTH, mars=rec.MARS2), **rec.EXT_CONFIG)
+    seen = []
+    sweep = pipe.optimize_weights_sweep
+    with np.load(rec.SWEEP_DRAWS) as f:
+        draws = {k: torch.as_tensor(f[k]) for k in ("cands", "noise")}
+
+    def capture(rmat, letters):
+        seen.append(rmat)
+        return sweep(rmat, letters, **draws)
+
+    timer = mtt.PhaseTimer()
+    _reset_launches()
+    pipe.optimize_weights_sweep = capture
+    try:
+        t1 = time.perf_counter()
+        out = mtt.mltps(s, cov, tps=True, config=config, folds=folds, generator=torch.Generator().manual_seed(0),
+                        device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        pipe.optimize_weights_sweep = sweep
+    launches = _read_launches()
+    mask = torch.isfinite(cov.data).all(0)
+    layers, failures = {}, []
+    for r, rmat in zip(out, seen):
+        ref = JAX_REFERENCE_EXT[r.name]
+        lb = optimize_weights_lbfgsb(rmat.cpu().numpy(), "gm")
+        got = {"kept": r.summary["best model(s):"], "weights": [float(v) for v in r.weights.weights],
+               "percent": r.summary["ensemble weights:"], "r2_ensemble": r.summary["r2 ensemble:"],
+               "r2_final": r.summary["r2 final:"], "objective": r.weights.objective,
+               "aicc": optimize_weights_aicc(rmat, "gm").letters, "lbfgsb": lb.letters,
+               "lbfgsb_objective": lb.objective, "cv_rss": (rmat**2).sum(1).tolist(),
+               "gam_edf": r.var_imp.get("gam", {}).get("edf"), "jax_sweep_collapsed": sum(ref["weights"]) == 0}
+        # the sweep up to the JAX package's collapse (all its rounds if none)
+        upto = ref["sweep_collapse_round"]
+        noise = draws["noise"].clone()
+        noise[upto if upto is not None else len(noise):] = 0.0
+        before = optimize_weights_sweep(rmat, "gm", cands=draws["cands"], noise=noise).weights
+        got["sweep_before_collapse"] = [float(v) for v in before]
+        got["sweep_before_collapse_err"] = float(np.abs(before - np.asarray(ref["sweep_before_collapse"])).max())
+        layers[r.name] = got
+        if not got["sweep_before_collapse_err"] <= SWEEP_ATOL:
+            failures.append(f"{r.name} sweep weights {got['sweep_before_collapse']} before round {upto}, the JAX "
+                            f"package's {ref['sweep_before_collapse']}")
+        for attr in ("final", "ensemble", "tps_surface"):
+            d = getattr(r, attr).data
+            if tuple(d.shape) != cov.grid.shape or not torch.isfinite(d[mask]).all():
+                failures.append(f"{r.name}.{attr} is not finite over the covariate mask")
+        for a, b in zip(got["cv_rss"], ref["cv_rss"]):
+            if not abs(a - b) <= CV_RSS_RTOL * abs(b):
+                failures.append(f"{r.name} CV residual sums {got['cv_rss']} vs the JAX package's {ref['cv_rss']}")
+        if got["aicc"] != ref["aicc"]:
+            failures.append(f"{r.name} AICc subset {got['aicc']!r}, the JAX package's {ref['aicc']!r}")
+        if got["jax_sweep_collapsed"]:
+            if not (sum(got["weights"]) > 0 and got["kept"] == ref["lbfgsb"]
+                    and got["objective"] <= 1.001 * lb.objective):
+                failures.append(f"{r.name}: the sweep {got['kept']!r} {got['objective']} against L-BFGS-B "
+                                f"{ref['lbfgsb']!r} {lb.objective}")
+            continue
+        if got["kept"] != ref["kept"]:
+            failures.append(f"{r.name} kept {got['kept']!r}, the JAX package's {ref['kept']!r}")
+        if not np.abs(np.asarray(got["weights"]) - np.asarray(ref["weights"])).max() <= SWEEP_ATOL:
+            failures.append(f"{r.name} sweep weights {got['weights']}, the JAX package's {ref['weights']}")
+        for key in ("r2_ensemble", "r2_final"):
+            if not abs(got[key] - ref[key]) <= R2_TOL["float64"]:
+                failures.append(f"{r.name} {key} {got[key]} vs the JAX package's {ref[key]}")
+    emit({
+        "phase": "mltps_ext_f64", "seconds": time.perf_counter() - t0, "mltps_wall_s": wall,
+        "grid": list(cov.grid.shape), "stations": n, "dtype": str(cov.data.dtype), "phases_s": timer.as_dict(),
+        "launches": launches, "layers": layers, "jax_reference": JAX_REFERENCE_EXT, "r2_tol": R2_TOL["float64"],
+    })
+    if launches["tps_grid"] != 6:
+        failures.append(f"K1 launched {launches['tps_grid']} times in the tile loop, expected one a live tile (6)")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return launches
+
+
+def phase_rf_finals_unmerged() -> dict:
+    """The RF pool at downsample 4 with ``batch_final_rf`` False and then
+    True from the same generator seed: the same forests, so the ensembles
+    agree within MERGE_TOL of their range; K3 launches of each (a raster
+    stream per response against one)."""
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.ensemble.kfold import numpy_folds
+    from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
+
+    t0 = time.perf_counter()
+    cov = mtt.synthetic_covariates(downsample=4, device="cuda")
+    s = mtt.load_sampling()
+    n = int(torch.isfinite(mtt.extract(cov, s["long"], s["lat"])).all(1).sum())
+    folds = numpy_folds(n, 10, 2, seed=0)
+    runs, failures = {}, []
+    for batch in (False, True):
+        timer = mtt.PhaseTimer()
+        _reset_launches()
+        out = mtt.mltps(s, cov, tps=False, config=MLTPSConfig(letters_pool="r", batch_final_rf=batch), folds=folds,
+                        generator=torch.Generator().manual_seed(0), device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        runs[batch] = (out, _read_launches(), timer.as_dict())
+    res = {"phase": "rf_finals_unmerged", "grid": list(cov.grid.shape), "stations": n,
+           "k3_launches_unmerged": runs[False][1]["forest_predict"], "k3_launches_merged": runs[True][1]["forest_predict"],
+           "phases_s_unmerged": runs[False][2], "phases_s_merged": runs[True][2], "layers": {}}
+    for a, b in zip(runs[False][0], runs[True][0]):
+        da, db = a.ensemble.data, b.ensemble.data
+        ok = torch.isfinite(db)
+        span = float(db[ok].max() - db[ok].min())
+        err = float((da[ok] - db[ok]).abs().max())
+        res["layers"][a.name] = {"kept": [a.summary["best model(s):"], b.summary["best model(s):"]],
+                                 "max_abs_diff": err, "range": span}
+        if not (torch.equal(torch.isfinite(da), ok) and err <= MERGE_TOL * span):
+            failures.append(f"{a.name}: unmerged RF surface differs from the merged one by {err} (range {span})")
+    if not res["k3_launches_unmerged"] > res["k3_launches_merged"] > 0:
+        failures.append(f"K3 launches unmerged {res['k3_launches_unmerged']} vs merged {res['k3_launches_merged']}")
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = {"forest_predict": res["k3_launches_unmerged"] + res["k3_launches_merged"]}
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -2120,6 +2725,16 @@ def main() -> int:
     phase_tiles_main(keep)
     phase_resume_tile(keep)
     phase_cv_b_perfold()
+    nys_ref = _nystrom_reference()
+    c4 = phase_tps_config4(nys_ref)
+    c3 = phase_tps_config3(nys_ref)
+    c5 = phase_tps_config5()
+    ext = phase_mltps_ext_f64()
+    rf_un = phase_rf_finals_unmerged()
+    # K1's launches: the main path's and the large-station paths' and the
+    # tile loop's; K3's: the main path's and the unmerged/merged RF finals'
+    launches["tps_grid"] += sum(p["launches"]["tps_grid"] for p in (c4, c3, c5)) + ext["tps_grid"]
+    launches["forest_predict"] += rf_un["launches"]["forest_predict"]
     k2cv = k2["shapes"]["cv"]
     # no single PyTorch call grows a tree, evaluates a forest or runs a
     # coordinate sweep: library_ms null.

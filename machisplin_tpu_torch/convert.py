@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .models.brt import BRTState
-from .models.gam import GAMState
+from .models.gam import GAMSmoothState, GAMState
 from .models.gbm_step import GBMStepResult
 from .models.mars import MARSState
 from .models.nn import NNState, flat_to_params, params_to_flat
@@ -21,7 +21,7 @@ from .ops.tps import TPSModel
 from .utils import resolve_device
 
 __all__ = [
-    "tps_model_from_numpy", "gam_state_from_numpy", "mars_state_from_numpy",
+    "tps_model_from_numpy", "gam_state_from_numpy", "gam_smooth_state_from_numpy", "mars_state_from_numpy",
     "tree_from_numpy", "brt_state_from_numpy", "gbm_result_from_numpy",
     "nn_state_from_jax", "nn_params_to_flat", "nn_params_from_flat",
     "svm_state_from_jax", "rf_state_from_jax",
@@ -49,14 +49,25 @@ def gam_state_from_numpy(d, dtype=torch.float64, device="cuda") -> GAMState:
     return GAMState(**{k: _t(f[k], dtype, device) for k in GAMState._fields})
 
 
-def mars_state_from_numpy(d, dtype=torch.float64, device="cuda") -> MARSState:
-    """MARSState from the JAX ``MARSState`` fields of a degree-1 fit; its
-    ``parent`` field must be all zero (no interaction terms)."""
+def gam_smooth_state_from_numpy(d, dtype=torch.float64, device="cuda") -> GAMSmoothState:
+    """GAMSmoothState from the JAX ``GAMSmoothState`` fields (coef, knots,
+    centers, x_mean, x_scale, lam, gcv, eff_df, and the int ``k``)."""
     f = _fields(d)
-    if "parent" in f and np.any(np.asarray(f["parent"]) != 0):
-        raise NotImplementedError("MARS interaction terms (degree > 1) are not ported yet")
-    out = {k: _t(f[k], dtype, device) for k in MARSState._fields if k != "vars"}
-    out["vars"] = torch.as_tensor(np.array(f["vars"]), dtype=torch.int64, device=resolve_device(device))
+    out = {k: _t(f[k], dtype, device) for k in GAMSmoothState._fields if k != "k"}
+    return GAMSmoothState(k=int(np.asarray(f["k"])), **out)
+
+
+def mars_state_from_numpy(d, dtype=torch.float64, device="cuda") -> MARSState:
+    """MARSState from the JAX ``MARSState`` fields; ``vars`` and ``parent``
+    (all zero for a degree-1 fit, or when absent) as int64."""
+    f = _fields(d)
+    dev = resolve_device(device)
+    ints = ("vars", "parent")
+    out = {k: _t(f[k], dtype, device) for k in MARSState._fields if k not in ints}
+    out["vars"] = torch.as_tensor(np.array(f["vars"]), dtype=torch.int64, device=dev)
+    parent = f.get("parent")
+    out["parent"] = (torch.zeros_like(out["vars"]) if parent is None
+                     else torch.as_tensor(np.array(parent), dtype=torch.int64, device=dev))
     return MARSState(**out)
 
 

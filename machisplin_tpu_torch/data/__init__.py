@@ -1,7 +1,9 @@
 """Bundled datasets — the reference's ``data(sampling)`` fixture.
 
 ``load_sampling()`` returns the 813-station table (long, lat, bio_1, bio_12;
-northern Peru, data-raw/sampling.csv).  ``example_grid()`` is the bundled
+northern Peru, data-raw/sampling.csv, or its R serialization
+data/sampling.RData); ``load_example_dat()`` the same table under the name
+``data(example.dat)`` gives it (R/data.R:20-38).  ``example_grid()`` is the bundled
 covariate rasters' geometry (3264 x 2476 cells at 0.0008333333 deg), and
 ``synthetic_covariates`` builds the same alt/slope/TWI-like stack as
 ``machisplin_tpu.data.synthetic_covariates``, bit for bit: numpy with
@@ -17,14 +19,33 @@ import torch
 from ..grid import GridSpec, Raster
 from ..utils import resolve_device
 
-__all__ = ["load_sampling", "example_grid", "synthetic_covariates"]
+__all__ = ["load_sampling", "load_example_dat", "example_grid", "synthetic_covariates"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def load_sampling() -> np.ndarray:
-    """Structured array with fields long, lat, bio_1, bio_12 (813 rows)."""
+def load_sampling(source: str = "csv") -> np.ndarray:
+    """Structured array with fields long, lat, bio_1, bio_12 (813 rows).
+
+    ``source="rdata"`` decodes the bundled R serialization (the object
+    ``data(sampling)`` loads) through ``io/rdata.py`` instead of the CSV;
+    the two agree exactly."""
+    if source == "rdata":
+        from ..io.rdata import read_rdata
+
+        return read_rdata(os.path.join(_HERE, "sampling.RData"))["sampling"]
+    if source != "csv":
+        raise ValueError(f"source must be 'csv' or 'rdata', got {source!r}")
     return np.genfromtxt(os.path.join(_HERE, "sampling.csv"), delimiter=",", names=True)
+
+
+def load_example_dat() -> np.ndarray:
+    """The reference's second bundled fixture, ``data(example.dat)``: the
+    same 813-station table under the name README Example 1 uses, decoded
+    from its R serialization."""
+    from ..io.rdata import read_rdata
+
+    return read_rdata(os.path.join(_HERE, "example.dat.Rdata"))["example.dat"]
 
 
 def example_grid(downsample: int = 1) -> GridSpec:

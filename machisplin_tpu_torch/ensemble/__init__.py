@@ -1,8 +1,11 @@
 from .cv import CVConfig, residual_matrix, run_cv
 from .kfold import fold_masks, kfold, numpy_folds
-from .weights import WeightResult, optimize_weights_lbfgsb
+from .weights import (
+    WeightResult, ensemble_objective, optimize_weights_aicc, optimize_weights_lbfgsb, optimize_weights_sweep,
+)
 
 __all__ = [
     "CVConfig", "WeightResult", "fold_masks", "kfold", "numpy_folds",
-    "optimize_weights_lbfgsb", "residual_matrix", "run_cv",
+    "ensemble_objective", "optimize_weights_aicc", "optimize_weights_lbfgsb", "optimize_weights_sweep",
+    "residual_matrix", "run_cv",
 ]

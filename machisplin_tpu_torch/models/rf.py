@@ -28,10 +28,14 @@ import torch
 from ..ops.forest import forest_predict_bins
 from .base import as_weight
 from .trees import (
-    Tree, assigned_predict, bin_data, flat_bin_cum_onehot, grow_level_trees, make_bins, tree_assign,
+    Tree, assigned_predict, bin_data, draw_mtry_scores, flat_bin_cum_onehot, grow_level_trees, make_bins,
+    tree_assign,
 )
 
-__all__ = ["RFState", "fit", "predict", "importance", "draw_bootstrap", "lane"]
+__all__ = ["RFState", "fit", "predict", "importance", "draw_bootstrap", "draw", "lane"]
+
+NTREE = 500
+MAX_DEPTH = 9
 
 
 class RFState(NamedTuple):
@@ -63,13 +67,29 @@ def draw_bootstrap(w, ntree: int, generator: torch.Generator | None = None) -> t
     return counts
 
 
-def fit(x, y, *, sample_weight=None, ntree: int = 500, mtry: int | None = None, max_depth: int = 9,
+def draw(w, p: int, *, ntree: int = NTREE, mtry: int | None = None, max_depth: int = MAX_DEPTH,
+         boot_counts=None, scores=None, generator: torch.Generator | None = None, **fit_kw):
+    """The draws of ``fit`` for L forests with row weights ``w`` (L, n) over
+    p features, in its order: bootstrap counts (L, ntree, n), then node
+    feature scores (L, ntree, 2^max_depth - 1, p) where mtry < p (else
+    None).  A draw passed in is kept and not made.  ``fit``'s other
+    keywords are accepted and ignored, so its keywords pass as they are."""
+    n_lanes = w.shape[0]
+    mtry = max(p // 3, 1) if mtry is None else mtry
+    if boot_counts is None:
+        boot_counts = draw_bootstrap(w, ntree, generator)
+    if scores is None and mtry < p:
+        scores = draw_mtry_scores(n_lanes * ntree, max_depth, p, generator).reshape(n_lanes, ntree, -1, p)
+    return boot_counts, scores
+
+
+def fit(x, y, *, sample_weight=None, ntree: int = NTREE, mtry: int | None = None, max_depth: int = MAX_DEPTH,
         min_leaf: float = 5.0, n_bins: int = 64, boot_counts=None, scores=None,
         generator: torch.Generator | None = None) -> RFState:
     """Grow ``ntree`` trees per lane.  ``boot_counts`` (L, ntree, n) raw
     bootstrap counts and ``scores`` (L, ntree, 2^max_depth - 1, p) node
-    feature scores (for one forest without the L axis) inject the draws;
-    the counts are scaled by n_active / n.  A single forest's state has no
+    feature scores (for one forest without the L axis) inject the draws,
+    else ``draw`` makes them; the counts are scaled by n_active / n.  A single forest's state has no
     lane axis."""
     x = torch.as_tensor(x)
     y = torch.as_tensor(y, device=x.device).to(x.dtype)
@@ -87,8 +107,8 @@ def fit(x, y, *, sample_weight=None, ntree: int = 500, mtry: int | None = None, 
     xb = bin_data(x, edges)
     c1h = flat_bin_cum_onehot(xb, n_bins)          # shared by all trees
     n_active = (w > 0).sum(-1).to(dtype).clamp_min(1.0)
-    if boot_counts is None:
-        boot_counts = draw_bootstrap(w, ntree, generator)
+    boot_counts, scores = draw(w, p, ntree=ntree, mtry=mtry, max_depth=max_depth, boot_counts=boot_counts,
+                               scores=scores, generator=generator)
     counts = torch.as_tensor(boot_counts).to(device=dev, dtype=dtype).reshape(n_lanes, ntree, n)
     # keep the expected sample count equal to the active-row count
     counts = counts * (n_active / n)[:, None, None]

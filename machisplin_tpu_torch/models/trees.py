@@ -67,7 +67,8 @@ def make_bins(x, n_bins: int = 64) -> torch.Tensor:
 
 def make_bins_masked(x, w, n_bins: int = 64) -> torch.Tensor:
     """Quantile bin edges over the rows with ``w`` > 0: (p, n_bins - 1) for
-    w (n,), (K, p, n_bins - 1) for w (K, n), in ``x``'s dtype.
+    w (n,), (K, p, n_bins - 1) for w (K, n), in ``x``'s dtype; ``x`` is
+    (n, p), or (K, n, p) for one matrix per table.
 
     A CV fold's split candidates from its own training rows (the per-fold
     ``gbm::gbm`` calls of the reference, V73:1830/1908): linear
@@ -78,10 +79,11 @@ def make_bins_masked(x, w, n_bins: int = 64) -> torch.Tensor:
     w = torch.as_tensor(w, device=x.device)
     single = w.ndim == 1
     w = w[None] if single else w
-    n, p = x.shape
+    n, p = x.shape[-2:]
     big = torch.finfo(x.dtype).max
     active = w > 0
-    xs = torch.sort(torch.where(active[:, :, None], x[None], big), dim=1).values      # (K, n, p), active first
+    xk = x if x.ndim == 3 else x[None]
+    xs = torch.sort(torch.where(active[:, :, None], xk, big), dim=1).values           # (K, n, p), active first
     na = active.sum(1)                                                               # (K,)
     qs = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float64, device=x.device)[1:-1].to(x.dtype)
     top = (na - 1).clamp_min(0)

@@ -15,14 +15,24 @@ uses it, V73:722/751; prediction ``terra::interpolate``, V73:726/753):
 Every function takes an optional leading batch axis (one factorisation per
 tile), where the JAX package used ``vmap``.  Pairwise distances are explicit
 differences, never the |a|^2 + |b|^2 - 2ab' expansion.
+
+``tps_fit_auto`` is the scale policy of BASELINE configs 3-5: the exact
+factorisation up to ``MAX_DEVICE_EIGH_KNOTS`` stations, the Nystrom
+reduced-basis fit (``ops/nystrom.py``) above it, and the float64 host fit
+(``ops/host_tps.py``) for ``method="exact"`` above it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import logging
+
 import torch
 
 from ..grid import GridSpec
+from ..utils import resolve_device
+
+log = logging.getLogger("machisplin_tpu_torch.tps")
 
 __all__ = [
     "TPSFactor",
@@ -30,8 +40,11 @@ __all__ = [
     "tps_factor",
     "tps_solve",
     "tps_fit",
+    "tps_fit_auto",
     "tps_predict",
     "tps_predict_grid",
+    "gcv_curve",
+    "MAX_DEVICE_EIGH_KNOTS",
 ]
 
 
@@ -232,6 +245,82 @@ def tps_solve(f: TPSFactor, y, lam=None, ngrid: int = 200, refine: int = 40) -> 
 def tps_fit(coords, y, mask=None, lam=None, ngrid: int = 200, refine: int = 40) -> TPSModel:
     """Factor + solve (the ``fields::Tps(xy, y)`` call shape)."""
     return tps_solve(tps_factor(coords, mask), y, lam=lam, ngrid=ngrid, refine=refine)
+
+
+def gcv_curve(f: TPSFactor, y, rho) -> torch.Tensor:
+    """GCV values V(rho) over a rho grid for one factor: y (n,) or (n, R),
+    rho (G,).  Returns (G,) for a single response or (R, G) for a stack."""
+    y = torch.as_tensor(y, device=f.mask.device)
+    single = y.ndim == 1
+    fb = TPSFactor(*(a[None] for a in f))
+    ycols = (y[:, None] if single else y) * f.mask[:, None]
+    u_coef = _mT(f.q2u.T @ ycols)[None]                           # (1, R, m)
+    rho = torch.as_tensor(rho, dtype=u_coef.dtype, device=u_coef.device)
+    g = rho.shape[0]
+    v = _gcv_value(fb, u_coef[:, :, None, :], rho[None, None, :].expand(1, u_coef.shape[1], g))[0]
+    return v[0] if single else v
+
+
+# The JAX package's exact-fit ceiling: past ~9k knots XLA's eigh workspace
+# exceeds one v5e chip's 16 GB.  It is kept as the port's default so that a
+# given n takes the same fit in both packages (the card's own eigh ceiling is
+# an open question in PERF.md).
+MAX_DEVICE_EIGH_KNOTS = 8192
+
+
+def _auto_route(n: int, method: str = "auto", max_device_knots: int | None = None,
+                landmarks: int | None = None):
+    """The fit ``tps_fit_auto`` takes for n stations: ("exact", None),
+    ("host", None) or ("nystrom", m)."""
+    limit = MAX_DEVICE_EIGH_KNOTS if max_device_knots is None else max_device_knots
+    if method == "auto":
+        method = "exact" if n <= limit else "nystrom"
+    if method == "nystrom":
+        m = landmarks if landmarks is not None else (2048 if n <= 65536 else 4096)
+        return "nystrom", min(m, n)
+    if method != "exact":
+        raise ValueError(f"unknown method {method!r}")
+    return ("exact", None) if n <= limit else ("host", None)
+
+
+def tps_fit_auto(coords, y, lam=None, ngrid: int = 200, refine: int = 40,
+                 max_device_knots: int | None = None, method: str = "auto",
+                 landmarks: int | None = None, generator: torch.Generator | None = None,
+                 mask=None, device=None) -> TPSModel:
+    """``tps_fit`` with the scale policy of BASELINE configs 3-5.
+
+    ``method="auto"``: the exact factorisation for n <= ``max_device_knots``
+    (default ``MAX_DEVICE_EIGH_KNOTS``), else the Nystrom reduced-basis fit
+    with ``landmarks`` centres (default 2048 up to 65,536 stations, 4096
+    beyond; drawn from ``generator``).  ``method="exact"`` forces the dense
+    fit: on the device up to the limit, else the float64 host path
+    (``ops/host_tps.py``); ``method="nystrom"`` forces the reduced basis.
+    Dense rows only: ``mask`` raises (the masked tile path is
+    ``tps_factor(coords, mask)`` + ``tps_solve``).
+
+    The fit runs on ``device``: by default the device of ``coords`` when it
+    is a tensor, else the GPU."""
+    if mask is not None:
+        raise ValueError(
+            "tps_fit_auto fits dense rows only; use tps_factor(coords, mask) "
+            "+ tps_solve for the masked/padded-tile path"
+        )
+    if device is None:
+        device = coords.device if isinstance(coords, torch.Tensor) else "cuda"
+    dev = resolve_device(device)
+    n = coords.shape[0]
+    route, m = _auto_route(n, method, max_device_knots, landmarks)
+    log.info("tps_fit_auto: %d stations -> %s%s", n, route, f" ({m} landmarks)" if m else "")
+    if route == "nystrom":
+        from .nystrom import nystrom_tps_fit
+
+        return nystrom_tps_fit(coords, y, m=m, lam=lam, generator=generator, device=dev)
+    if route == "host":
+        from .host_tps import tps_fit_host
+
+        return tps_fit_host(coords, y, lam=lam, ngrid=ngrid, refine=refine, device=dev)
+    coords = torch.as_tensor(coords, device=dev)
+    return tps_fit(coords, torch.as_tensor(y, device=dev).to(coords.dtype), lam=lam, ngrid=ngrid, refine=refine)
 
 
 def _predict_block(model: TPSModel, pts_scaled):

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ensemble.cv import CVConfig, residual_matrix, run_cv
-from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb
+from ..ensemble.weights import WeightResult, optimize_weights_lbfgsb, optimize_weights_sweep
 from ..grid import GridSpec, Raster, crop, extract, lonlat_rasters, stack
 from ..models import gam, gbm_step, mars, nn, rf, svm
 from ..models.base import LETTER_TO_NAME
@@ -72,10 +72,19 @@ class MLTPSConfig:
     tps_fit_overlap: float = 0.2     # V73:673
     tps_mosaic_overlap: float = 0.025  # V73:680
     min_tile_points: int = 10        # V73:710
+    # all live tiles in batched masked solves; False fits each tile alone
+    # (tps_fit on its stations) and predicts it with one K1 launch
+    tps_batch_tiles: bool = True
     tps_tile_chunk: int = 16         # tiles factorised per batched solve
+    # "lbfgsb" (the reference's search) or "sweep" (the batched candidate
+    # sweep, on the device)
+    weight_optimizer: str = "lbfgsb"
     # batch gbm.step final fits across responses (fit_multi); False, or a
     # single response, takes the serial gbm.step (gbm_step.fit) per response
     batch_final_brt: bool = True
+    # merge the RF finals of all responses into one raster pass; False fits,
+    # predicts and rates each response's forest alone (a raster pass each)
+    batch_final_rf: bool = True
     letters_pool: str | None = None  # restrict the algorithm pool (extension)
     predict_block_rows: int = 256
     svm_importance_sample: int = 200  # V73:564
@@ -167,7 +176,7 @@ def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=N
     if letter == "g":
         states = gam.fit(x, y_b, **config.final_gam)
         fn = lambda q: gam.predict(states, q).T
-        imps = [gam.importance(gam.GAMState(*(a[j] for a in states)), names) for j in range(n_resp)]
+        imps = [gam.importance(gam.lane(states, j), names) for j in range(n_resp)]
         return fn, imps
     if letter == "m":
         states = mars.fit(x, y_b, **config.final_mars)
@@ -262,6 +271,36 @@ def _final_rf_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, 
     return rsurf, rfn(x), imps
 
 
+def _final_rf_serial(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generator, timer, rf_draws=None):
+    """RF final fits one response at a time (``batch_final_rf=False``, the
+    JAX package's per-response loop): each forest is grown, rated and
+    predicted over the raster alone, one forest-predictor stream per
+    response.  ``rf_draws`` as ``_final_rf_batched``'s; without it the
+    draws are made as that path makes them, so both grow the same forests.
+    Returns (surfaces (H, W, R), station predictions (n, R), [importance
+    dicts])."""
+    n_resp = ycols.shape[1]
+    if rf_draws is None:
+        rf_draws = rf.draw(torch.ones((n_resp, x.shape[0])), x.shape[1], generator=generator, **config.final_rf)
+    counts, scores = rf_draws
+    surfs, pts, imps = [], [], []
+    for j in range(n_resp):
+        with timer.phase(f"final_fit_r_{j}"):
+            state = rf.fit(x, ycols[:, j], boot_counts=counts[j], scores=None if scores is None else scores[j],
+                           **config.final_rf)
+        with timer.phase(f"importance_r_{j}"):
+            imps.append(rf.importance(state, x, ycols[:, j], names))
+        ntree = state.trees.feat.shape[0]
+        wvec = torch.full((ntree, 1), 1.0 / ntree, device=x.device)
+        with timer.phase(f"forest_tables_r_{j}"):
+            ftab = prepare_forest(state.trees, wvec, _forest_tables(state.trees, x.shape[1]), x.device)
+        rfn = lambda q, ft=ftab: predict_prepared(ft, q).to(q.dtype)
+        with timer.phase(f"raster_predict_r_{j}"):
+            surfs.append(predict_over_stack(rfn, rast_stack, config.predict_block_rows, out_cols=1))
+        pts.append(rfn(x))
+    return torch.cat(surfs, dim=-1), torch.cat(pts, dim=1), imps
+
+
 def _tps_tiles(grid: GridSpec, config: MLTPSConfig):
     """The reference's auto-tiling plan: fit extents (+-20%) and mosaic
     extents (+-2.5%) for ceil(n/1500)-per-axis blocks, row-major from the
@@ -313,9 +352,30 @@ def _tps_error_surface(coords, res_mat, rast_stack: Raster, config: MLTPSConfig)
     crops = [crop(first_layer, fit_exts[h]) for h in range(n_tiles)]
     # stations inside the fit extent with a valid first covariate (V73:701-706)
     sels = [torch.isfinite(extract(rb, coords[:, 0], coords[:, 1])).cpu().numpy() for rb in crops]
-    surfs = _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev)
+    if config.tps_batch_tiles:
+        surfs = _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev)
+    else:
+        surfs = _serial_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev)
     tiles = [crop(s, mosaic_exts[h]) for h, s in enumerate(surfs)]
     return feather_blend(tiles, n_rx, n_cx, grid), n_tiles
+
+
+def _serial_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev):
+    """The reference's tile loop (V73:690-738): each tile with at least
+    ``min_tile_points`` stations fitted alone (``tps_fit`` on its stations)
+    and predicted over its fit extent (one K1 launch on the card), the rest
+    zero surfaces.  Each Raster carries (R, rows, cols)."""
+    surfs = []
+    for h, (rb, sel) in enumerate(zip(crops, sels)):
+        if int(sel.sum()) < config.min_tile_points:
+            log.info("tile %d: %d points -> zero surface", h + 1, int(sel.sum()))
+            surfs.append(Raster(torch.zeros((res_mat.shape[1],) + rb.grid.shape, dtype=dtype, device=dev), rb.grid))
+            continue
+        model = tps_fit(torch.as_tensor(coords[sel], dtype=dtype, device=dev),
+                        torch.as_tensor(res_mat[sel], dtype=dtype, device=dev))
+        surf = tps_predict_grid(model, rb.grid, block_rows=config.predict_block_rows)
+        surfs.append(Raster(surf.to(dtype).movedim(-1, 0), rb.grid))
+    return surfs
 
 
 def _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev):
@@ -393,6 +453,8 @@ def mltps(
             raise ValueError(f"letters_pool {config.letters_pool!r} excludes every algorithm")
     if trouble and "b" not in letters_pool:
         raise ValueError("trouble=True fits BRT alone: the algorithm pool must include 'b'")
+    if config.weight_optimizer not in ("lbfgsb", "sweep"):
+        raise ValueError(f"weight_optimizer must be 'lbfgsb' or 'sweep', got {config.weight_optimizer!r}")
 
     with timer.phase("input_prep"):
         rast_stack, covar_names, coords, x_np, responses = _prepare_inputs(
@@ -417,7 +479,10 @@ def mltps(
     with timer.phase("ensemble_weights"):
         for i, name in enumerate(resp_names):
             rmat = residual_matrix({l: r[i] for l, r in cv_all.items()}, letters_pool)
-            wres = optimize_weights_lbfgsb(rmat, letters_pool)
+            if config.weight_optimizer == "sweep":
+                wres = optimize_weights_sweep(torch.as_tensor(rmat, device=dev), letters_pool)
+            else:
+                wres = optimize_weights_lbfgsb(rmat, letters_pool)
             # trouble: the reference's BRT-only switch keeps b at weight 1
             mods_run = "b" if trouble else wres.letters
             kept = {"b": 1.0} if trouble else dict(zip(wres.letters, wres.kept_weights))
@@ -441,7 +506,8 @@ def mltps(
         if letter == "b":
             bsurf, bpt, imps = _final_brt(x, ycols, covar_names, rast_stack, config, generator, timer)
         elif letter == "r":
-            bsurf, bpt, imps = _final_rf_batched(x, ycols, covar_names, rast_stack, config, generator, timer)
+            final_rf = _final_rf_batched if config.batch_final_rf else _final_rf_serial
+            bsurf, bpt, imps = final_rf(x, ycols, covar_names, rast_stack, config, generator, timer)
         else:
             with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
                 bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config, generator)

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions: K1 (TPS grid), K2
+"""The CUDA kernels against their plain PyTorch versions: K1 (TPS grid, also
+on a Nystrom model fitted on the card, whose float64 tail runs there), K2
 (tree grower, one tree and a 50-tree cycle per launch; one bin table or one
 per chain, monotone signs, rows in shared or in device memory), K3 (forest
 predictor, also on a random forest in its slot loop) and K4 (the SVM's
@@ -43,6 +44,8 @@ def _model(n_knots, n_resp, device, seed=0):
     (300, 2, (129, 260)),     # the main path's response count
     (200, 9, (20, 31)),       # more responses than one launch holds
     (813, 3, (64, 64)),       # every station in one model, a ragged last chunk
+    (4096, 1, (24, 200)),     # the large-station path's landmark count
+    (300, 19, (20, 31)),      # BASELINE config 3's responses: 8 + 8 + 3 a call
 ])
 def test_k1_matches_plain(cuda, n_knots, n_resp, shape):
     model = _model(n_knots, n_resp, cuda)
@@ -623,3 +626,45 @@ def test_k2_cycle_with_shared_bins_tables_matches_plain(cuda):
     assert all(gap <= 1e-5 for _, _, gap in agree["gaps"]), agree["gaps"]
     assert agree["identical_chains"] > 0
     assert agree["max_abs_err"] <= 1e-5 * agree["resid_scale"]
+
+
+def test_nystrom_on_card_matches_cpu(cuda):
+    """The reduced-basis fit on the card (float64 tail by cholesky_ex, eigh
+    and triangular solves there) against the same fit on the CPU: float64
+    within 1e-9 of the range.  Float32 inputs at a fixed lambda against the
+    port's float32 fit of the same inputs on the CPU: the streamed sums
+    G = B'B, B'y and y'y within 1e-6 of their largest entry (float32
+    round-off, 1.2e-7 measured on an H100), and the fitted values within
+    2e-2 of the range.  B'B squares the basis' conditioning, so on this
+    problem the float32 fit moves by about 1e-2 of the range with the order
+    of the float32 sums alone (chunk 777 against 500: 1.1e-2 on the CPU,
+    4.9e-3 on an H100; the card against the CPU 9.5e-3), as the JAX
+    package's float32 fit does; its surface through K1 against the plain
+    version."""
+    from machisplin_tpu_torch.ops import nystrom as tnys
+
+    rng = np.random.default_rng(0)
+    n, m = 3000, 128
+    coords = rng.uniform(0, 1, (n, 2))
+    y = np.stack([np.sin(6 * coords[:, 0]) * np.cos(5 * coords[:, 1]), coords[:, 0]], 1) + 0.1 * rng.normal(size=(n, 2))
+    lm = coords[np.random.default_rng(1).choice(n, m, replace=False)]
+    cpu = tnys.nystrom_tps_fit(torch.as_tensor(coords), torch.as_tensor(y), landmarks=lm, chunk=777, device="cpu")
+    gpu = tnys.nystrom_tps_fit(torch.as_tensor(coords, device=cuda), torch.as_tensor(y, device=cuda),
+                               landmarks=lm, chunk=777)
+    span = float(np.ptp(y))
+    assert torch.allclose(gpu.lam.cpu(), cpu.lam, rtol=1e-12)
+    assert float((gpu.fitted.cpu() - cpu.fitted).abs().max()) <= 1e-9 * span
+    c32, y32 = torch.as_tensor(coords, dtype=torch.float32), torch.as_tensor(y, dtype=torch.float32)
+    cpu32 = tnys.nystrom_tps_fit(c32, y32, landmarks=lm, lam=1e-4, chunk=777, device="cpu")
+    f32 = tnys.nystrom_tps_fit(c32.to(cuda), y32.to(cuda), landmarks=lm, lam=1e-4, chunk=777)
+    assert f32.fitted.dtype == cpu32.fitted.dtype == torch.float32
+    xs = (c32 - c32.amin(0)) / (c32.amax(0) - c32.amin(0))
+    want = tnys._stream_stats(xs, y32, cpu32.knots, 777)
+    got = tnys._stream_stats(xs.to(cuda), y32.to(cuda), cpu32.knots.to(cuda), 777)
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert float((f32.fitted.cpu() - cpu32.fitted).abs().max()) <= 2e-2 * span
+    g = tgrid.GridSpec(nrows=50, ncols=70, xmin=0.0, ymax=1.0, dx=1 / 70, dy=1 / 50)
+    tab = ttg.grid_tables(gpu, g, torch.float32)
+    got, want = ttg.tps_grid_cuda(tab, g), ttg.tps_grid_plain(tab, g)
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())

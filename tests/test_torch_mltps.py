@@ -72,8 +72,9 @@ def test_mltps_unported_pool_raises():
     through ``gbm_step.fit`` and agrees with the JAX package's run within the
     BRT band (``test_torch_brt.R2_BAND``: the bags are torch draws here).
     The batched drivers' ``global_bins=False`` (the shared- and
-    per-fold-bins branches, once refused) runs now; what is still unported
-    on the letters' paths is MARS beyond degree 1, which raises."""
+    per-fold-bins branches, once refused) runs now, and so does MARS at
+    degree 2 (once refused too), with the JAX package's picks, parents and
+    predictions."""
     from machisplin_tpu.ensemble import CVConfig as JCVConfig
     from machisplin_tpu_torch.ensemble.cv import CVConfig as TCVConfig
     from machisplin_tpu_torch.models import gbm_step as tgbm, mars as tmars
@@ -99,5 +100,13 @@ def test_mltps_unported_pool_raises():
                              generator=torch.Generator().manual_seed(0), **brt)
         assert [r.best_trees % brt["step_size"] for r in res] == [0, 0]
         assert all(torch.isfinite(r.final.train_fit).all() for r in res)
-    with pytest.raises(NotImplementedError, match="MARS degree > 1 is not ported yet"):
-        tmars.fit(x, torch.rand(40, dtype=torch.float64), degree=2)
+    from machisplin_tpu.models import mars as jmars
+
+    y2 = torch.rand(40, dtype=torch.float64)
+    kw = dict(degree=2, penalty=3.0, n_pairs=3, n_knots=8)
+    want = jmars.fit(None, jnp.asarray(x.numpy()), jnp.asarray(y2.numpy()), **kw)
+    got = tmars.fit(x, y2, **kw)
+    for f in ("vars", "parent", "pair_active", "active"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
+    np.testing.assert_allclose(tmars.predict(got, x).numpy(), np.asarray(jmars.predict(want, jnp.asarray(x.numpy()))),
+                               rtol=0, atol=1e-9)

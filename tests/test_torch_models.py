@@ -256,7 +256,9 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.pipeline.importance, machisplin_tpu_torch.models.families, "
         "machisplin_tpu_torch.models.deviance, machisplin_tpu_torch.io.geotiff, "
         "machisplin_tpu_torch.io.overviews, machisplin_tpu_torch.io.writers, machisplin_tpu_torch.io.checkpoint, "
-        "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging; "
+        "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging, "
+        "machisplin_tpu_torch.ops.nystrom, machisplin_tpu_torch.ops.host_tps, machisplin_tpu_torch.io.rdata, "
+        "machisplin_tpu_torch.ensemble.weights; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
