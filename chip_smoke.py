@@ -145,6 +145,31 @@ From the root of a checkout, on a machine with a CUDA device and nvcc:
   ``batch_final_rf`` False and True from one seed: the same surfaces, K3
   launches of each.
 
+The device mesh (``parallel/sharded.py``), each phase's ranks started with
+``torch.multiprocessing.spawn`` and a ``file://`` store after the build,
+every collective with MESH_TIMEOUT_S; a rank that fails fails the phase:
+
+* ``mesh_main``: ``mltps_main``'s call (the same folds and generator seed)
+  under ``MLTPSConfig(mesh=make_mesh())`` over 2 gloo ranks on the one
+  card: the CV residuals of b, v and r bit for bit (K2's chains, K4's lanes
+  and the RF's forests split), g, m and n within MESH_GM_TOL and NN_TOL of
+  their range; the same kept letters,
+  r² within MESH_R2_TOL, final rasters within MESH_RASTER_TOL of max
+  |surface|, every rank's LayerResults identical; each rank's K1-K4
+  launches and phase seconds.  Where the machine has 2 or more cards the
+  same call also runs on NCCL over min(count, 4) of them; on one card a
+  line says it did not run;
+* ``mesh_nccl1``: world size 1 on NCCL: config 4's float64 Nystrom fit
+  through ``nystrom_tps_fit(mesh=)`` and ``batched_tile_tps`` over the
+  north-star grid's six TPS tiles (K1 six launches), each against its
+  unsharded call;
+* ``mesh_config4_2r``: config 4's Nystrom fit over 2 gloo ranks in float64
+  and float32, against the unsharded fit (lambda on the same grid point).
+
+``tiles_main`` also reads one GeoTIFF through the host library's decoder
+(``io/native.py``, built with g++ by ``build``) and holds it bit for bit
+against the pure-Python codec; a line says so if g++ finds no zlib.h.
+
 Each phase prints one JSON line; then the kernel table, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero; so does a run without a CUDA device, or outside a checkout.
@@ -380,12 +405,17 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_build():
     from machisplin_tpu_torch.kernels import build
 
+    from machisplin_tpu_torch.io.native import load_native
+
     t0 = time.perf_counter()
     libs = build.build_all()
     for name, text in build.ptxas_info().items():
         log.info("nvcc %s:\n%s", name, text)
+    _zlib_header()                 # says so on its own line where the compiler finds no zlib.h
+    host = load_native()           # the host library, with g++, before any rank starts
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(os.path.relpath(p) for p in libs.values())})
+          "libraries": sorted(os.path.relpath(p) for p in libs.values()),
+          "host_library": None if host is None else os.path.relpath(host._name)})
 
 
 def _largest_tile():
@@ -416,7 +446,7 @@ def k1_tables():
     import torch
 
     from machisplin_tpu_torch.ops import tps_grid
-    from machisplin_tpu_torch.parallel.tiles import batched_tile_solve, pack_tiles
+    from machisplin_tpu_torch.parallel.sharded import batched_tile_solve, pack_tiles
 
     g, coords, ys, budget = _largest_tile()
     ct, yt, mt_ = pack_tiles([coords], [ys], pad_to=budget, dtype=torch.float64, device="cuda")
@@ -1655,8 +1685,10 @@ def phase_kernel_svm():
     return per["cv_float32"]
 
 
-def phase_mltps_main():
-    """The north-star call: mltps with the default pool at full size, float32."""
+def phase_mltps_main(keep: dict | None = None):
+    """The north-star call: mltps with the default pool at full size,
+    float32.  ``keep`` receives its folds, CV residuals and layers, which
+    ``mesh_main`` holds the mesh's run to."""
     import torch
 
     import machisplin_tpu_torch as mtt
@@ -1671,13 +1703,20 @@ def phase_mltps_main():
     t_setup = time.perf_counter() - t0
 
     timer = mtt.PhaseTimer()
+    cv_res: dict = {}
+    restore = _record_cv(cv_res)
     _reset_launches()
     t1 = time.perf_counter()
-    out = mtt.mltps(s, cov, tps=True, folds=folds, generator=torch.Generator().manual_seed(0), device="cuda",
-                    timer=timer)
+    try:
+        out = mtt.mltps(s, cov, tps=True, folds=folds, generator=torch.Generator().manual_seed(0), device="cuda",
+                        timer=timer)
+    finally:
+        restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = _read_launches()
+    if keep is not None:
+        keep.update(folds=folds, cv=cv_res, layers=_layer_arrays(out), wall_s=wall)
 
     mask = torch.isfinite(cov.data).all(0)
     layers, failures = {}, []
@@ -1840,6 +1879,7 @@ def phase_tiles_main(keep: dict):
         failures.append(f"tiles_create's layout {layout} is not the JAX package's {JAX_TILES_LAYOUT}")
     out_dir = tempfile.mkdtemp(prefix="tiles_main_")
     tiles, finals, results = [], {}, []
+    native: dict = {}
     try:
         for t, (rast, dat) in enumerate(zip(ts.rast, ts.dat)):
             n = int(torch.isfinite(mtt.extract(rast, dat["long"], dat["lat"])).all(1).sum())
@@ -1862,6 +1902,10 @@ def phase_tiles_main(keep: dict):
             for r in out:
                 back = mtt.read_geotiff(os.path.join(d, f"{r.name}.tif"), device="cuda")
                 same = _same_bits(back, r.final)
+                if not native:
+                    native = _native_read_check(os.path.join(d, f"{r.name}.tif"), back)
+                    if native["zlib_h"] and not native["bit_identical"]:      # else no library: said above
+                        failures.append(f"the native decoder's read of {r.name}.tif is not the Python codec's")
                 if not same:
                     failures.append(f"tile {t + 1} {r.name}: the GeoTIFF read back is not the final bit for bit")
                 if not torch.isfinite(r.final.data[mask]).all():
@@ -1922,11 +1966,49 @@ def phase_tiles_main(keep: dict):
         shutil.rmtree(out_dir, ignore_errors=True)
     keep.update(tiles=ts, results=results)
     emit({"phase": "tiles_main", "seconds": time.perf_counter() - t0, "tiles_layout": TILES, "layout": layout,
-          "tiles": tiles, "merge": merge, "merge_launches": merge_launches,
+          "tiles": tiles, "merge": merge, "merge_launches": merge_launches, "native_decoder": native,
           "jax_reference": JAX_REFERENCE_TILES, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if failures:
         raise RuntimeError("; ".join(failures))
     return tiles
+
+
+def _zlib_header() -> bool:
+    """Whether the C++ compiler finds zlib.h, which the host library's
+    deflate branch needs; says so on a line of its own when it does not."""
+    from machisplin_tpu_torch.kernels.build import host_finds_header
+
+    ok = host_finds_header("zlib.h")
+    if not ok:
+        print("zlib.h: not found by the C++ compiler; the host library (csrc/host_native.cpp) cannot build "
+              "its deflate decoder", flush=True)
+    return ok
+
+
+def _native_read_check(path: str, back) -> dict:
+    """A GeoTIFF read through the host library's decoder (``back``, which
+    must have taken it) against the pure-Python codec's read, bit for bit."""
+    from machisplin_tpu_torch.io import native
+    import machisplin_tpu_torch as mtt
+
+    decoded = []
+    decode, load = native.decode_chunks, native.load_native
+
+    def counted(*a, **k):
+        blob = decode(*a, **k)
+        decoded.append(blob is not None)
+        return blob
+
+    native.decode_chunks = counted
+    try:
+        again = mtt.read_geotiff(path, device="cuda")
+        native.load_native = lambda: None          # without the library: the pure-Python codec
+        plain = mtt.read_geotiff(path, device="cuda")
+    finally:
+        native.decode_chunks, native.load_native = decode, load
+    taken = decoded == [True, False]
+    return {"file": os.path.basename(path), "zlib_h": _zlib_header(), "native_path_taken": taken,
+            "bit_identical": taken and _same_bits(again, plain) and _same_bits(back, plain)}
 
 
 def phase_resume_tile(keep: dict):
@@ -2695,6 +2777,353 @@ def phase_rf_finals_unmerged() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- the mesh
+
+MESH_RANKS = 2                 # ranks of mesh_main and mesh_config4_2r on the one card (gloo)
+MESH_TIMEOUT_S = 600           # every collective's timeout, and the wait for a phase's ranks
+MESH_R2_TOL = 1e-4             # r^2 ensemble and final against mltps_main's
+MESH_RASTER_TOL = 1e-5         # final rasters, of max |surface|
+MESH_GM_TOL = 1e-6             # GAM and MARS CV residuals, of their range (batched solves of another width)
+MESH_NYS_TOL64 = 1e-9          # float64 Nystrom fitted values and d against the unsharded fit, of their scale
+# float64 Nystrom radial coefficients: they solve the ill-conditioned whitened
+# system, held as tests/test_torch_nystrom.py holds them (COEF_TOL)
+MESH_NYS_COEF_TOL = 1e-6
+
+
+def _record_cv(store: dict):
+    """Keep the CV residuals of the next ``mltps`` call in ``store``
+    ({letter: (R, n) numpy}); returns the function that undoes the wrap."""
+    import numpy as np
+
+    mod = sys.modules["machisplin_tpu_torch.pipeline.mltps"]
+    orig = mod.run_cv
+
+    def wrapped(*a, **k):
+        out = orig(*a, **k)
+        store.update({letter: np.asarray(v) for letter, v in out.items()})
+        return out
+
+    mod.run_cv = wrapped
+    return lambda: setattr(mod, "run_cv", orig)
+
+
+def _layer_arrays(results) -> dict:
+    """Each LayerResult as host arrays and plain values."""
+    import numpy as np
+
+    return {r.name: {
+        "final": r.final.data.cpu().numpy(), "ensemble": r.ensemble.data.cpu().numpy(),
+        "tps": r.tps_surface.data.cpu().numpy(), "residuals": np.asarray(r.residuals),
+        "kept": r.summary["best model(s):"], "percent": r.summary["ensemble weights:"],
+        "r2_ensemble": r.summary["r2 ensemble:"], "r2_final": r.summary["r2 final:"],
+        "var_imp": repr(r.var_imp),
+    } for r in results}
+
+
+def _same_value(a, b) -> bool:
+    """Bit for bit (floats by their bytes, NaN included), else ==."""
+    import numpy as np
+
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_value(a[k], b[k]) for k in a)
+    return a == b
+
+
+def _mesh_worker(rank, world, store, backend, out_dir, job, args):
+    """One rank of a mesh phase: joins the process group, builds the mesh,
+    runs ``job`` and saves its result for the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    logging.basicConfig(stream=sys.stderr, level=logging.WARNING, format=f"rank {rank} %(name)s: %(message)s")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S), **kw)
+    try:
+        from machisplin_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+        out = {"main": _mesh_job_main, "nccl1": _mesh_job_nccl1, "config4": _mesh_job_config4}[job](mesh, args)
+        out["rank"] = rank
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(job: str, world: int, backend: str, args: dict) -> list:
+    """Start ``world`` ranks of ``job`` (spawn, a ``file://`` store), wait
+    for them with MESH_TIMEOUT_S, and return each rank's result; a rank
+    that fails, or a phase past its time, fails the phase and stops every
+    rank."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix=f"mesh_{job}_")
+    try:
+        ctx = mp.start_processes(_mesh_worker, args=(world, os.path.join(out_dir, "store"), backend, out_dir, job,
+                                                     args), nprocs=world, join=False, start_method="spawn")
+        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(f"mesh phase {job}: the ranks ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _mesh_job_main(mesh, args):
+    """The north-star call of ``mltps_main`` under ``MLTPSConfig(mesh=)``."""
+    import torch
+
+    import machisplin_tpu_torch as mtt
+
+    cov = mtt.synthetic_covariates(downsample=1, device="cuda")
+    s = mtt.load_sampling()
+    cv_res: dict = {}
+    timer = mtt.PhaseTimer()
+    restore = _record_cv(cv_res)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    try:
+        out = mtt.mltps(s, cov, tps=True, folds=args["folds"], generator=torch.Generator().manual_seed(0),
+                        device="cuda", timer=timer, config=mtt.MLTPSConfig(mesh=mesh))
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t1, "launches": _read_launches(), "phases_s": timer.as_dict(),
+            "cv": cv_res, "layers": _layer_arrays(out)}
+
+
+def _north_star_tiles():
+    """The north-star grid's live TPS tiles as ``mltps`` packs them
+    (float32), with each response's station values less their mean as the
+    residuals: (coords, y, mask, origins, tile_shape, cell)."""
+    import numpy as np
+    import torch
+
+    import machisplin_tpu_torch as mtt
+    from machisplin_tpu_torch.parallel import pack_tiles
+
+    mod = sys.modules["machisplin_tpu_torch.pipeline.mltps"]
+    rast, _, coords, _, responses = mod._prepare_inputs(mtt.load_sampling(),
+                                                         mtt.synthetic_covariates(downsample=1, device="cuda"))
+    cfg = mtt.MLTPSConfig()
+    _, _, fit_exts, _ = mod._tps_tiles(rast.grid, cfg)
+    res = np.stack([v - v.mean() for v in responses.values()], 1)
+    crops = [mtt.crop(rast.band(0), e) for e in fit_exts]
+    sels = [torch.isfinite(mtt.extract(c, coords[:, 0], coords[:, 1])).cpu().numpy() for c in crops]
+    live = [h for h in range(len(crops)) if int(sels[h].sum()) >= cfg.min_tile_points]
+    budget = -(-max(int(sels[h].sum()) for h in live) // 64) * 64
+    ct, yt, mt_ = pack_tiles([coords[sels[h]] for h in live], [res[sels[h]] for h in live], pad_to=budget,
+                             dtype=rast.data.dtype, device="cuda")
+    origins = torch.tensor([(crops[h].grid.xmin, crops[h].grid.ymax) for h in live], dtype=torch.float64)
+    shape = (max(crops[h].grid.nrows for h in live), max(crops[h].grid.ncols for h in live))
+    return ct, yt, mt_, origins, shape, (crops[live[0]].grid.dx, crops[live[0]].grid.dy)
+
+
+def _nystrom_gaps(got, want) -> dict:
+    """Largest gaps of a Nystrom fit from another, each of the other's
+    scale; lambda's in decades (0 on the same grid point)."""
+    import numpy as np
+
+    out = {"lam": float(got.lam), "lam_decades": _lam_steps(float(got.lam), float(want.lam))}
+    for key in ("c", "d", "fitted"):
+        a, b = (getattr(m, key).double().cpu().numpy() for m in (got, want))
+        out[key + "_gap"] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        out[key + "_bit_equal"] = a.tobytes() == b.tobytes()
+    return out
+
+
+def _config4_fits(mesh, dtype):
+    """config 4's Nystrom fit at the recorder's landmarks, unsharded and
+    over ``mesh``, in ``dtype``: (unsharded, sharded, sharded seconds)."""
+    import torch
+
+    from machisplin_tpu_torch.ops.nystrom import nystrom_tps_fit
+
+    rec = _record_module("record_jax_nystrom")
+    coords_np, y_np = rec.config4_data()
+    coords = torch.as_tensor(coords_np, device="cuda").to(dtype)
+    y = torch.as_tensor(y_np, device="cuda").to(dtype)
+    lm = coords[torch.as_tensor(rec.landmark_idx(len(coords_np), CONFIG4["landmarks"]), device="cuda")]
+    ref = nystrom_tps_fit(coords, y, landmarks=lm, chunk=NYS_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = nystrom_tps_fit(coords, y, landmarks=lm, chunk=NYS_CHUNK, mesh=mesh)
+    torch.cuda.synchronize()
+    return ref, got, time.perf_counter() - t1
+
+
+def _mesh_job_nccl1(mesh, args):
+    """World size 1 on NCCL: config 4's float64 Nystrom fit and the
+    north-star grid's TPS tiles, each against its unsharded call."""
+    import torch
+
+    from machisplin_tpu_torch.parallel import batched_tile_tps
+
+    ref, got, fit_s = _config4_fits(mesh, torch.float64)
+    ct, yt, mt_, origins, shape, cell = _north_star_tiles()
+    kw = dict(tile_shape=shape, cell=cell)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    surf = batched_tile_tps(ct, yt, mt_, origins, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t1
+    launches = _read_launches()
+    plain = batched_tile_tps(ct, yt, mt_, origins, **kw)
+    return {"nystrom": _nystrom_gaps(got, ref), "nystrom_s": fit_s, "tiles": int(ct.shape[0]),
+            "tile_shape": list(shape), "tiles_s": tiles_s, "launches": launches,
+            "tiles_bit_equal": bool(torch.equal(surf, plain)),
+            "tiles_max_abs_err": float((surf - plain).abs().max())}
+
+
+def _mesh_job_config4(mesh, args):
+    """config 4's Nystrom fit over the ranks, float64 and float32."""
+    import torch
+
+    out = {}
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        ref, got, fit_s = _config4_fits(mesh, dtype)
+        out[name] = dict(_nystrom_gaps(got, ref), seconds=fit_s,
+                         fitted=got.fitted.double().cpu().numpy(), c=got.c.double().cpu().numpy())
+    return out
+
+
+def _ranks_agree(ranks: list, keys) -> list:
+    """Failures where a rank's ``keys`` differ from rank 0's."""
+    return [f"rank {r['rank']}: {k} differs from rank 0's" for r in ranks[1:] for k in keys
+            if not _same_value(r[k], ranks[0][k])]
+
+
+def phase_mesh_main(keep: dict, world: int = MESH_RANKS, backend: str = "gloo") -> dict:
+    """mltps_main's call under MLTPSConfig(mesh=make_mesh()) over ``world``
+    ranks, held to mltps_main's run: the CV residuals of b, v and r bit for
+    bit, g and m within MESH_GM_TOL and n within NN_TOL of their range;
+    the same kept letters; r^2 within MESH_R2_TOL;
+    final rasters within MESH_RASTER_TOL of max |surface|; every rank's
+    LayerResults identical to rank 0's."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ranks = _run_ranks("main", world, backend, {"folds": keep["folds"]})
+    failures = _ranks_agree(ranks, ("layers", "cv"))
+    got = ranks[0]
+    cv_tol = {"b": 0.0, "v": 0.0, "r": 0.0, "g": MESH_GM_TOL, "m": MESH_GM_TOL, "n": NN_TOL}
+    cv = {}
+    for letter, want in keep["cv"].items():
+        a = got["cv"][letter]
+        span = float(np.ptp(want))
+        gap = float(np.abs(a - want).max()) / span
+        cv[letter] = {"gap_of_range": gap, "bit_identical": _same_value(a, want), "tol": cv_tol[letter]}
+        if not (cv[letter]["bit_identical"] if cv_tol[letter] == 0.0 else gap <= cv_tol[letter]):
+            failures.append(f"CV letter {letter}: {gap} of the range from mltps_main's (tol {cv_tol[letter]})")
+    layers = {}
+    for name, want in keep["layers"].items():
+        lay = got["layers"][name]
+        scale = float(np.nanmax(np.abs(want["final"])))
+        err = float(np.nanmax(np.abs(lay["final"] - want["final"])))
+        same_nan = bool((np.isnan(lay["final"]) == np.isnan(want["final"])).all())
+        layers[name] = {"kept": lay["kept"], "kept_main": want["kept"], "final_gap_of_max": err / scale,
+                        "final_bit_identical": _same_value(lay["final"], want["final"])}
+        if lay["kept"] != want["kept"]:
+            failures.append(f"{name} kept {lay['kept']!r}, mltps_main kept {want['kept']!r}")
+        for key in ("r2_ensemble", "r2_final"):
+            layers[name][key] = [lay[key], want[key]]
+            if not abs(lay[key] - want[key]) <= MESH_R2_TOL:
+                failures.append(f"{name} {key} {lay[key]} vs mltps_main's {want[key]}")
+        if not (same_nan and err <= MESH_RASTER_TOL * scale):
+            failures.append(f"{name} final raster {err} from mltps_main's (tol {MESH_RASTER_TOL} x {scale})")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    for k in ("tps_grid", "tree_grow", "forest_predict", "svm_sweep"):
+        if not all(r["launches"][k] > 0 for r in ranks):
+            failures.append(f"kernel {k} did not run on every rank: {[r['launches'][k] for r in ranks]}")
+    res = {"phase": "mesh_main" if backend == "gloo" else "mesh_main_nccl", "seconds": time.perf_counter() - t0,
+           "ranks": world, "backend": backend, "wall_s": [r["wall_s"] for r in ranks],
+           "main_wall_s": keep["wall_s"], "phases_s": ranks[0]["phases_s"],
+           "launches_per_rank": [r["launches"] for r in ranks], "launches": launches, "cv": cv, "layers": layers}
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_mesh_nccl1() -> dict:
+    """World size 1 on NCCL: config 4's float64 Nystrom fit through
+    nystrom_tps_fit(mesh=) against the unsharded fit (lambda the same, c
+    within MESH_NYS_COEF_TOL, d and fitted values within MESH_NYS_TOL64 of
+    their scale; the gaps printed, 0 where bit-equal), and
+    batched_tile_tps over the north-star grid's TPS tiles bit for bit."""
+    t0 = time.perf_counter()
+    got = _run_ranks("nccl1", 1, "nccl", {})[0]
+    failures = []
+    nys = got["nystrom"]
+    if nys["lam_decades"] != 0.0:
+        failures.append(f"Nystrom lambda {nys['lam']} is not the unsharded fit's")
+    for key in ("c", "d", "fitted"):
+        if not nys[key + "_gap"] <= (MESH_NYS_COEF_TOL if key == "c" else MESH_NYS_TOL64):
+            failures.append(f"Nystrom {key}: {nys[key + '_gap']} of its scale from the unsharded fit")
+    if not got["tiles_bit_equal"]:
+        failures.append(f"batched_tile_tps under the mesh parts from the unsharded call: {got['tiles_max_abs_err']}")
+    if got["launches"]["tps_grid"] != got["tiles"]:
+        failures.append(f"K1 launched {got['launches']['tps_grid']} times for {got['tiles']} tiles")
+    res = dict(got, phase="mesh_nccl1", seconds=time.perf_counter() - t0)
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def phase_mesh_config4_2r() -> dict:
+    """config 4's Nystrom fit over MESH_RANKS gloo ranks on the card: float64
+    against the unsharded fit as in mesh_nccl1 (lambda the same), float32
+    on the same lambda with fitted values within NYS_FIT_TOL of the range
+    (summation order moves float32 Nystrom fits); every rank the same."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ranks = _run_ranks("config4", MESH_RANKS, "gloo", {})
+    failures = [f"rank {r['rank']}: {name} {key} differs from rank 0's" for r in ranks[1:]
+                for name in ("float64", "float32") for key in ("lam", "fitted", "c")
+                if not _same_value(r[name][key], ranks[0][name][key])]
+    rec = _record_module("record_jax_nystrom")
+    span = float(np.ptp(rec.config4_data()[1]))
+    out = {}
+    for name in ("float64", "float32"):
+        g = {k: v for k, v in ranks[0][name].items() if k not in ("fitted", "c")}
+        out[name] = g
+        if g["lam_decades"] != 0.0:
+            failures.append(f"{name}: lambda {g['lam']} is not the unsharded fit's grid point")
+    for key in ("c", "d", "fitted"):
+        if not out["float64"][key + "_gap"] <= (MESH_NYS_COEF_TOL if key == "c" else MESH_NYS_TOL64):
+            failures.append(f"float64 {key}: {out['float64'][key + '_gap']} of its scale from the unsharded fit")
+    fit_gap32 = out["float32"]["fitted_gap"] * float(np.abs(ranks[0]["float32"]["fitted"]).max())
+    out["float32"]["fitted_gap_of_range"] = fit_gap32 / span
+    if not fit_gap32 <= NYS_FIT_TOL * span:
+        failures.append(f"float32 fitted values {fit_gap32} from the unsharded fit's (tol {NYS_FIT_TOL * span})")
+    res = {"phase": "mesh_config4_2r", "seconds": time.perf_counter() - t0, "ranks": MESH_RANKS, **out}
+    emit(res)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     logging.basicConfig(stream=sys.stderr, level=logging.INFO, format="%(name)s: %(message)s")
     import torch
@@ -2718,7 +3147,8 @@ def main() -> int:
     phase_nn_lbfgs()
     phase_mltps_bn()
     k4 = phase_kernel_svm()
-    launches = phase_mltps_main()
+    main_keep: dict = {}
+    launches = phase_mltps_main(main_keep)
     phase_cv_b_8000()
     phase_mltps_one()
     keep: dict = {}
@@ -2731,10 +3161,23 @@ def main() -> int:
     c5 = phase_tps_config5()
     ext = phase_mltps_ext_f64()
     rf_un = phase_rf_finals_unmerged()
+    mesh = phase_mesh_main(main_keep)
+    if torch.cuda.device_count() >= 2:
+        phase_mesh_main(main_keep, world=min(torch.cuda.device_count(), 4), backend="nccl")
+    else:
+        print("mesh_main_nccl: not run: this machine has one CUDA device, and NCCL takes one rank a device",
+              flush=True)
+    main_keep.clear()
+    nccl1 = phase_mesh_nccl1()
+    phase_mesh_config4_2r()
     # K1's launches: the main path's and the large-station paths' and the
     # tile loop's; K3's: the main path's and the unmerged/merged RF finals'
     launches["tps_grid"] += sum(p["launches"]["tps_grid"] for p in (c4, c3, c5)) + ext["tps_grid"]
     launches["forest_predict"] += rf_un["launches"]["forest_predict"]
+    # and every kernel's launches on mesh_main's ranks, K1's on mesh_nccl1's tiles
+    for k in ("tps_grid", "tree_grow", "forest_predict", "svm_sweep"):
+        launches[k] += mesh["launches"][k]
+    launches["tps_grid"] += nccl1["launches"]["tps_grid"]
     k2cv = k2["shapes"]["cv"]
     # no single PyTorch call grows a tree, evaluates a forest or runs a
     # coordinate sweep: library_ms null.

@@ -14,7 +14,11 @@ Every name of the JAX package's public API has its counterpart here: the
 grid substrate (``grid.py``), the GeoTIFF codec, the output writers and
 checkpoint/resume (``io/``), and the tiled-landscape workflow
 (``tiles_create`` -> ``mltps`` per tile -> ``tiles_merge``,
-``pipeline/tiles.py``).
+``pipeline/tiles.py``).  The device mesh (``parallel/sharded.py``) runs
+``mltps``, the CV, the batched BRT fits, the raster passes, the TPS tiles
+and the Nystrom fit SPMD over ``torch.distributed``, one process a rank;
+the host library (``csrc/host_native.cpp`` through ``io/native.py``,
+built with the C++ compiler at first use) decodes GeoTIFF strips.
 """
 from .utils.precision import highest_precision
 

@@ -14,11 +14,23 @@ batched gbm.step (``models/gbm_step.fit_outer_batched``, kernel K2); for NN
 (``models/nn.py``), on a response min-shifted and max-scaled to [0, 1] with
 its train split's statistics (V73:234-241); for SVM (``v``) every pair is
 one lane of the batched coordinate sweep (kernel K4), on the gathered rows
-of its one training fold when the split is inverted; for RF (``r``) all
-(response x fold) forests grow in one batched call and the predictions come
-from the growers' own node assignments (``RFState.train_pred``).  All six
+of its one training fold when the split is inverted; for RF (``r``) the
+(response x fold) forests grow ``CVConfig.rf_group`` a call (all in one
+call by default) and the predictions come from the growers' own node
+assignments (``RFState.train_pred``).  All six
 letters of the reference are ported: ``b`` (BRT), ``g`` (GAM), ``n`` (NN),
 ``m`` (MARS), ``r`` (RF) and ``v`` (SVM).
+
+With a device mesh (``parallel/sharded.py``) the kernels' work splits
+across the ranks: the BRT's boosting chains (K2), the SVM's sweep lanes
+(K4) and the RF's forests (each rank its share).  The plain
+PyTorch fits run the whole lane batch: the GAM, NN and MARS on rank 0,
+which sends their predictions to every rank, and the SVM's operands on
+every rank.  PyTorch's CUDA reductions lay out their threads by the batch
+width, so a lane computed in a narrower batch parts from the unsharded run
+in the last bits, which the NN's L-BFGS steps and MARS's greedy picks then
+amplify.  Every draw is made for the whole batch on every rank and sliced,
+so each lane's result does not depend on the world size.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 
 from ..models import gam, gbm_step, mars, nn, rf, svm
+from ..parallel.sharded import gather_rows, rank0_result, share_rows
 from ..utils.timing import PhaseTimer
 from .kfold import fold_masks, kfold
 
@@ -55,6 +68,7 @@ class CVConfig:
         )
     )
     rf: dict = dataclasses.field(default_factory=lambda: dict(ntree=500))
+    rf_group: int | None = None  # (response x fold) forests grown per call on a device; None: all of them
     nn: dict = dataclasses.field(default_factory=lambda: dict(hidden=10, maxit=10000))
     mars: dict = dataclasses.field(default_factory=dict)
     svm: dict = dataclasses.field(default_factory=dict)
@@ -74,7 +88,7 @@ def _nn_y_transform(y, train_w):
 def run_cv(
     x, y, *, config: CVConfig | None = None, algorithms: str = "bgnmrv",
     folds=None, generator: torch.Generator | None = None, nn_init=None,
-    svm_pairs=None, rf_draws=None, timer: PhaseTimer | None = None,
+    svm_pairs=None, rf_draws=None, timer: PhaseTimer | None = None, mesh=None,
 ) -> dict[str, np.ndarray]:
     """Returns {letter: fold-major concatenated test residuals}.
 
@@ -90,6 +104,12 @@ def run_cv(
     feature scores (R*K, ntree, 2^max_depth - 1, p)).  ``timer`` times each
     letter as phase ``cv_<letter>`` (synchronised, so a letter's seconds on
     a GPU are its own).
+
+    ``mesh``: every rank calls ``run_cv`` with the same inputs and
+    generator state; the BRT's chains, the SVM's sweep lanes and the RF's
+    forests split across the ranks (see the module docstring) and every
+    rank returns the full result.  The draws are made whole and sliced, so
+    the generator is consumed as without a mesh.
     """
     for name in algorithms:
         if name not in PORTED_LETTERS:
@@ -110,6 +130,7 @@ def run_cv(
     train_w, test_w = fold_masks(folds, k, invert=invert)    # (R, K, n)
     flat_w = train_w.reshape(n_resp * k, n).to(x.dtype)
     flat_y = ys.T.repeat_interleave(k, dim=0)                # (R*K, n)
+    n_lanes = n_resp * k
 
     timer = timer or PhaseTimer()
     preds = {}
@@ -123,16 +144,22 @@ def run_cv(
 
     if "g" in algorithms:
         with letter("g"):
-            preds["g"] = gam.predict(gam.fit(x, flat_y, sample_weight=flat_w, **config.gam), x)
+            preds["g"] = rank0_result(mesh, x.device, lambda: gam.predict(
+                gam.fit(x, flat_y, sample_weight=flat_w, **config.gam), x))
     if "n" in algorithms:
         with letter("n"):
             # every (response, fold) model is one lane of the batched L-BFGS
             yn, y_min, y_max = _nn_y_transform(flat_y, flat_w)
-            state = nn.fit(x, yn, sample_weight=flat_w, init=nn_init, generator=generator, **config.nn)
-            preds["n"] = nn.predict(state, x) * y_max[:, None] + y_min[:, None]
+            if mesh is not None and nn_init is None:
+                nn_init = nn.draw_init(n_lanes, x.shape[1], config.nn.get("hidden", 10),
+                                       config.nn.get("init_range", 0.7), generator, x.dtype, x.device)
+            pred = rank0_result(mesh, x.device, lambda: nn.predict(
+                nn.fit(x, yn, sample_weight=flat_w, init=nn_init, generator=generator, **config.nn), x))
+            preds["n"] = pred * y_max[:, None] + y_min[:, None]
     if "m" in algorithms:
         with letter("m"):
-            preds["m"] = mars.predict(mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x)
+            preds["m"] = rank0_result(mesh, x.device, lambda: mars.predict(
+                mars.fit(x, flat_y, sample_weight=flat_w, **config.mars), x))
     if "v" in algorithms:
         with letter("v"):
             if invert:
@@ -141,21 +168,34 @@ def run_cv(
                 n_tr = int((flat_w > 0).sum(1).max())
                 idx = torch.argsort((flat_w <= 0).to(torch.int8), dim=1, stable=True)[:, :n_tr]
                 state = svm.fit(x[idx], flat_y.gather(1, idx), sample_weight=flat_w.gather(1, idx),
-                                pairs=svm_pairs, generator=generator, **config.svm)
+                                pairs=svm_pairs, generator=generator, mesh=mesh, **config.svm)
             else:
-                state = svm.fit(x, flat_y, sample_weight=flat_w, pairs=svm_pairs, generator=generator, **config.svm)
+                state = svm.fit(x, flat_y, sample_weight=flat_w, pairs=svm_pairs, generator=generator, mesh=mesh,
+                                **config.svm)
             preds["v"] = svm.predict(state, x)
     if "r" in algorithms:
         with letter("r"):
-            # predictions at x from the growers' own node assignments
-            counts, scores = rf_draws if rf_draws is not None else (None, None)
-            preds["r"] = rf.fit(x, flat_y, sample_weight=flat_w, boot_counts=counts, scores=scores,
-                                generator=generator, **config.rf).train_pred
+            # predictions at x from the growers' own node assignments; each
+            # rank grows its share of the forests (all of them without a
+            # mesh), rf_group a call, from draws made for all of them at once
+            counts, scores = rf.draw(flat_w, x.shape[1], generator=generator, **config.rf) if rf_draws is None \
+                else rf_draws
+            counts = torch.as_tensor(counts)
+            scores = None if scores is None else torch.as_tensor(scores)
+            idx = share_rows(n_lanes, mesh)
+            mine = [None if a is None else a[idx.to(a.device)] for a in (flat_y, flat_w, counts, scores)]
+            group = len(idx) if config.rf_group is None else max(1, config.rf_group)
+            grown = []
+            for s in range(0, len(idx), group):
+                yy, ww, cc, ss = (None if a is None else a[s : s + group] for a in mine)
+                grown.append(rf.fit(x, yy, sample_weight=ww, boot_counts=cc, scores=ss, **config.rf).train_pred)
+            preds["r"] = gather_rows(torch.cat(grown), n_lanes, mesh)
     if "b" in algorithms:
         with letter("b"):
             # every (response, outer fold) gbm.step run is one outer chain of
             # a single batched curve: R x K x K boosting chains per K2 launch
-            preds_b, _ = gbm_step.fit_outer_batched(x, flat_y, flat_w, generator=generator, **config.brt)
+            preds_b, _ = gbm_step.fit_outer_batched(x, flat_y, flat_w, generator=generator, mesh=mesh,
+                                                    **config.brt)
             preds["b"] = preds_b.to(x.dtype)
 
     # fold-major concatenation of test residuals (V73:255-319), per response

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..grid import GridSpec, Raster
+from ..parallel.sharded import broadcast_object, on_rank0
 from ..pipeline.mltps import LayerResult
 from ..utils import resolve_device
 
@@ -36,8 +37,11 @@ def _raster_entries(prefix: str, r: Raster | None, arrays: dict, meta: dict):
     meta[prefix] = {"grid": _grid_meta(r.grid), "names": list(r.names)}
 
 
-def save_layer(path: str, res: LayerResult):
-    """Write ``res`` (rasters copied to the host) to ``path`` (.npz)."""
+def save_layer(path: str, res: LayerResult, mesh=None):
+    """Write ``res`` (rasters copied to the host) to ``path`` (.npz); with a
+    device ``mesh``, on rank 0."""
+    if mesh is not None:
+        return on_rank0(mesh, save_layer, path, res)
     arrays: dict = {"residuals": np.asarray(res.residuals)}
     meta: dict = {
         "name": res.name,
@@ -83,10 +87,12 @@ def mltps_resumable(int_values, covar_ras, checkpoint_dir: str, *, folds=None, d
 
     ``folds``: optional (R, n) fold ids, row r for response r (passed on to
     its run as a (1, n) array); ``device``, ``generator`` and every other
-    keyword go to ``mltps`` unchanged."""
+    keyword go to ``mltps`` unchanged.  Under ``config.mesh`` rank 0 decides
+    which layers exist and writes the checkpoints."""
     from ..pipeline.mltps import mltps
 
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    mesh = getattr(kwargs.get("config"), "mesh", None)
+    on_rank0(mesh, os.makedirs, checkpoint_dir, exist_ok=True)
     arr = np.asarray(int_values)
     names = list(arr.dtype.names)
     resp_names = names[2:]
@@ -95,13 +101,13 @@ def mltps_resumable(int_values, covar_ras, checkpoint_dir: str, *, folds=None, d
     results = []
     for r, rn in enumerate(resp_names):
         ck = os.path.join(checkpoint_dir, f"{rn}.npz")
-        if os.path.exists(ck):
+        if broadcast_object(os.path.exists(ck), mesh):
             results.append(load_layer(ck, device=device))
             continue
         sub = arr[[names[0], names[1], rn]]
         fold_r = None if folds is None else np.asarray(folds[r])[None]
         res = mltps(sub, covar_ras, folds=fold_r, device=device, **kwargs)[0]
         res.n_layers = len(resp_names)
-        save_layer(ck, res)
+        save_layer(ck, res, mesh)
         results.append(res)
     return results

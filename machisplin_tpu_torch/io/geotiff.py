@@ -276,7 +276,9 @@ def _lzw_decode(data: bytes) -> bytes:
 
 def read_geotiff(path: str, band: int | None = None, device="cuda") -> Raster:
     """Read a GeoTIFF into a Raster on ``device`` (``band``: one band of a
-    multi-band file)."""
+    multi-band file).  Strips decode in the host library's threaded decoder
+    (``io/native.py``) where it is built, else in Python; both give the
+    same bytes, and a strip that fails to decode raises either way."""
     dev = resolve_device(device)
     # mmap, not read(): pages fault in as they are touched, so structural
     # parsing and the uncompressed path never read strips they do not use
@@ -359,6 +361,27 @@ def read_geotiff(path: str, band: int | None = None, device="cuda") -> Raster:
             out = np.frombuffer(
                 buf, dtype, count=h * w * spp, offset=int(offs[0])
             ).reshape(h, w, spp)
+            return _finish_read(out, tags, h, w, spp, band, dev)
+
+    # strips through the host library's decoder; its predictor-2 pass runs
+    # over the bytes of a row, which is right for one 8-bit sample a pixel
+    # and for wider samples (undone below), not for 8-bit interleaved ones
+    byte_samples = predictor == 2 and dtype.itemsize == 1 and spp > 1
+    if 322 not in tags and compression in (1, 5, 8, 32946) and not byte_samples:
+        from .native import decode_chunks
+
+        rps = int(tags.get(278, [h])[0])
+        offs = np.asarray(tags[273], np.int64)
+        cnts = np.asarray(tags[279], np.int64)
+        row_bytes = w * spp * dtype.itemsize
+        sizes = np.asarray([min(rps, h - s * rps) * row_bytes for s in range(len(offs))], np.int64)
+        oofs = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int64)
+        blob = decode_chunks(buf, offs, cnts, oofs, sizes, compression, predictor, row_bytes, dtype.itemsize,
+                             int(sizes.sum()))
+        if blob is not None:
+            out = np.frombuffer(blob, dtype)[: h * w * spp].reshape(h, w, spp)
+            if predictor == 2 and dtype.itemsize != 1:
+                out = np.cumsum(out, axis=1, dtype=dtype)
             return _finish_read(out, tags, h, w, spp, band, dev)
 
     out = np.zeros((h, w, spp), dtype)

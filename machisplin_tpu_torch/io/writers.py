@@ -19,6 +19,7 @@ import os
 import random
 from typing import Sequence
 
+from ..parallel.sharded import on_rank0
 from .geotiff import write_geotiff_file
 
 _LEGEND = [
@@ -40,13 +41,18 @@ def write_geotiff(
     overwrite: bool = True,
     seed: int | None = None,
     overviews: bool | Sequence[int] = False,
+    mesh=None,
 ):
     """Write each layer's final raster + the summary CSV; returns paths.
 
     ``overviews=True`` additionally builds a GDAL-compatible ``<layer>.tif.ovr``
     pyramid per raster (NaN-aware averaged levels; see io/overviews.py); pass
     a list of decimation factors to choose the ladder explicitly.  Off by
-    default to mirror terra::writeRaster (V73:1011), which emits none."""
+    default to mirror terra::writeRaster (V73:1011), which emits none.
+    With a device ``mesh`` rank 0 writes, every rank returns the paths
+    (as do the other writers)."""
+    if mesh is not None:
+        return on_rank0(mesh, write_geotiff, results, out_dir, out_names, overwrite, seed, overviews)
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for i, res in enumerate(results):
@@ -82,7 +88,9 @@ def write_geotiff(
     return paths + [csv_path]
 
 
-def write_residuals(results: Sequence, out_dir: str = ".", out_names=None):
+def write_residuals(results: Sequence, out_dir: str = ".", out_names=None, mesh=None):
+    if mesh is not None:
+        return on_rank0(mesh, write_residuals, results, out_dir, out_names)
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for i, res in enumerate(results):
@@ -106,7 +114,9 @@ def _format_imp(value, indent=0) -> str:
     return f"{pad}{value}"
 
 
-def write_loadings(results: Sequence, out_dir: str = ".", out_names=None):
+def write_loadings(results: Sequence, out_dir: str = ".", out_names=None, mesh=None):
+    if mesh is not None:
+        return on_rank0(mesh, write_loadings, results, out_dir, out_names)
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for i, res in enumerate(results):

@@ -1,10 +1,13 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc and its host library with g++,
+and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface, ``build/<hash>/lib<name>.so`` at the root of the checkout, where
 ``<hash>`` covers the sources and the flags, so an edit rebuilds.  All
 sources compile at once, one nvcc process each.  Nothing here includes
-PyTorch's headers, which keeps a build to seconds.
+PyTorch's headers, which keeps a build to seconds.  Each ``csrc/<name>.cpp``
+(the host library, ``io/native.py``) compiles with the C++ compiler into the
+same directory (``load_host_library``), where no CUDA toolkit is needed.
 
 A failed build raises with the compiler's output.  Building happens at
 first use (``load_library``), never at import.
@@ -19,7 +22,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["NVCC_FLAGS", "build_all", "load_library", "ptxas_info"]
+__all__ = ["NVCC_FLAGS", "HOST_FLAGS", "build_all", "host_compiler", "host_finds_header", "load_host_library", "load_library",
+           "ptxas_info"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +33,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# no -march=native: the build directory is keyed by the sources, not the host
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+HOST_LIBS = ["-lz", "-lpthread"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _ptxas: dict[str, str] = {}
@@ -44,16 +52,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _sources() -> dict[str, str]:
+def _sources(ext: str = ".cu") -> dict[str, str]:
     return {
         os.path.splitext(os.path.basename(p))[0]: p
-        for p in sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+        for p in sorted(glob.glob(os.path.join(_CSRC, "*" + ext)))
     }
 
 
 def _build_dir() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, path in _sources().items():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + HOST_FLAGS + HOST_LIBS).encode())
+    for name, path in {**_sources(), **_sources(".cpp")}.items():
         h.update(name.encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -89,6 +97,48 @@ def build_all() -> dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
+
+
+def host_compiler() -> str | None:
+    """The C++ compiler on ``PATH`` (``CXX``, else g++ or c++), or None."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    return None
+
+
+def host_finds_header(header: str) -> bool:
+    """Whether the C++ compiler on ``PATH`` finds ``<header>``."""
+    cxx = host_compiler()
+    return cxx is not None and subprocess.run([cxx, "-E", "-x", "c++", "-"], input=f"#include <{header}>\n",
+                                              capture_output=True, text=True).returncode == 0
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded ``lib<name>.so`` of ``csrc/<name>.cpp``, compiled with the
+    C++ compiler first if needed; a failed build raises."""
+    key = "host:" + name
+    if key not in _loaded:
+        src = _sources(".cpp").get(name)
+        if src is None:
+            raise KeyError(f"no host source csrc/{name}.cpp")
+        out_dir = _build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        if not os.path.exists(lib):
+            cxx = host_compiler()
+            if cxx is None:
+                raise RuntimeError("no C++ compiler on PATH")
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src, *HOST_LIBS], capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"{os.path.basename(cxx)} failed for {name}.cpp (exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib)
+        _loaded[key] = ctypes.CDLL(lib)
+    return _loaded[key]
 
 
 def load_library(name: str) -> ctypes.CDLL:

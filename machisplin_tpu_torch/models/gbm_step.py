@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.tree_grow import gbm_tree_cycle, prepare_bins
+from ..parallel.sharded import gather_rows, share_rows
 from . import brt
 from .brt import STEP_SIZE, _random_bags, _seed, _stack_bags, family_tree
 from .deviance import calc_deviance
@@ -154,26 +155,28 @@ def _draw_selectors(generator, w_outer, n_folds):
     return torch.zeros((f_outer, n), dtype=torch.int64, device=w_outer.device).scatter_(1, order, seq)
 
 
-def _grow_inputs(x, n_bins, w=None, repeat: int = 1):
+def _grow_inputs(x, n_bins, w=None, repeat: int = 1, chains=None):
     """Bins and K2's inputs made from them (``prepare_bins``): the global
     full-data bins for ``w`` None; else one table per row of ``w`` (C, n),
     each binned on its rows with w > 0 (``make_bins_masked``), every table
-    repeated ``repeat`` times in K2's inputs (one per chain).  Returns
-    (edges, xb, tables): edges (p, nb - 1) or (C, p, nb - 1), xb (n, p) or
-    (C, n, p)."""
+    repeated ``repeat`` times in K2's inputs (one per chain).  ``chains``
+    (a mesh share's chain indices) keeps only those chains' tables in K2's
+    inputs, taken after the repeat.  Returns (edges, xb, tables): edges
+    (p, nb - 1) or (C, p, nb - 1), xb (n, p) or (C, n, p), all chains'."""
     if w is None:
         edges = make_bins(x, n_bins)                          # (p, nb - 1)
         xb = bin_data(x, edges)                               # (n, p)
         return edges, xb, prepare_bins(xb, n_bins)
     edges = make_bins_masked(x, w, n_bins)                    # (C, p, nb - 1)
     xb = bin_data(x, edges)                                   # (C, n, p)
-    return edges, xb, prepare_bins(xb.repeat_interleave(repeat, 0) if repeat > 1 else xb, n_bins)
+    xk = xb.repeat_interleave(repeat, 0) if repeat > 1 else xb
+    return edges, xb, prepare_bins(xk if chains is None else xk[chains], n_bins)
 
 
 def _cv_deviance_curve_multi(
     x, y, w_outer, *, n_folds, n_splits, lr, bag_fraction, min_leaf, step_size, max_trees,
     tolerance, n_bins, selectors=None, global_bins=True, shared_bins=False, bags: Callable | None = None,
-    generator: torch.Generator | None = None, keep_fhist: bool = False,
+    generator: torch.Generator | None = None, keep_fhist: bool = False, mesh=None,
 ) -> MultiCurve:
     """All OUTER chains' gbm.step CV curves, batched: F x K boosting chains
     advance one K2 launch per ``step_size``-tree cycle, with the
@@ -188,7 +191,12 @@ def _cv_deviance_curve_multi(
     one table per outer chain from its training rows, shared by its K inner
     chains (``shared_bins``), or one per chain from its inner training rows.
     ``keep_fhist``: also the train deviances and link-scale fits at every
-    checkpoint (the CV statistics' inputs)."""
+    checkpoint (the CV statistics' inputs).
+
+    ``mesh``: each rank launches K2 on its share of the F x K chains, with
+    only their bin tables; the draws are made for all chains and sliced,
+    and the chains' fits are gathered after every cycle, so the stopping
+    bookkeeping runs on the same full arrays on every rank."""
     x = torch.as_tensor(x)
     dev_ = x.device
     n, p = x.shape
@@ -203,19 +211,20 @@ def _cv_deviance_curve_multi(
     fold_ids = torch.arange(n_folds, device=dev_)
     train_w = (selectors[:, None, :] != fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
     test_w = (selectors[:, None, :] == fold_ids[None, :, None]).to(x.dtype) * w_outer[:, None, :]
+    c = f_outer * n_folds
+    mine = None if mesh is None else share_rows(c, mesh).to(dev_)
     if global_bins:
         edges, xb, tables = _grow_inputs(x, n_bins)
     elif shared_bins:
-        edges, xb, tables = _grow_inputs(x, n_bins, w_outer, repeat=n_folds)
+        edges, xb, tables = _grow_inputs(x, n_bins, w_outer, repeat=n_folds, chains=mine)
     else:
-        edges, xb, tables = _grow_inputs(x, n_bins, train_w.reshape(f_outer * n_folds, n))
+        edges, xb, tables = _grow_inputs(x, n_bins, train_w.reshape(c, n), chains=mine)
         edges = edges.reshape((f_outer, n_folds) + edges.shape[1:])
         xb = xb.reshape((f_outer, n_folds) + xb.shape[1:])
     test_sum = test_w.sum(2).clamp_min(1.0)
     train_sum = train_w.sum(2).clamp_min(1.0)
     f0 = (train_w * y[:, None, :]).sum(2) / train_sum          # (F, K)
 
-    c = f_outer * n_folds
     f32 = torch.float32
     y_flat = y[:, None, :].expand(f_outer, n_folds, n).reshape(c, n).to(f32).contiguous()
     tw_flat = train_w.reshape(c, n).to(f32)
@@ -223,6 +232,7 @@ def _cv_deviance_curve_multi(
     y32, test_w32, test_sum32 = y.to(f32), test_w.to(f32), test_sum.to(f32)
     if bags is None:
         bags = _random_bags(generator, bag_fraction, (c, n), dev_, step_size)
+    y_k, fm_k = (y_flat, fm) if mine is None else (y_flat[mine].contiguous(), fm[mine].contiguous())
 
     max_cp = max_trees // step_size
     win = min(10, max_cp)
@@ -232,7 +242,10 @@ def _cv_deviance_curve_multi(
     tdev, fhist = [], []
     while j < max_cp and np.any(stopped > max_cp):
         cycle = _stack_bags(bags, t, step_size, (c, n), dev_, tw_flat)
-        fm = gbm_tree_cycle(tables, y_flat, fm, cycle, n_splits=n_splits, nb=n_bins, min_leaf=min_leaf, lr=lr).f
+        if mine is not None:
+            cycle = cycle[:, mine].contiguous()
+        fm_k = gbm_tree_cycle(tables, y_k, fm_k, cycle, n_splits=n_splits, nb=n_bins, min_leaf=min_leaf, lr=lr).f
+        fm = gather_rows(fm_k, c, mesh)
         t += step_size
         resid = y32[:, None, :] - fm.reshape(f_outer, n_folds, n)
         dev[j] = ((test_w32 * resid**2).sum(2) / test_sum32).cpu().numpy()
@@ -249,7 +262,7 @@ def _cv_deviance_curve_multi(
 def _final_fits(
     x, ycols, best_trees, *, budget, n_splits, lr_vec, bag_fraction, min_leaf, n_bins,
     sample_w=None, own_bins=False, with_deviance=False, emit_trees=False, bags: Callable | None = None,
-    generator: torch.Generator | None = None, step_size: int = STEP_SIZE,
+    generator: torch.Generator | None = None, step_size: int = STEP_SIZE, mesh=None,
 ) -> dict:
     """All chains' gaussian final refits, one K2 launch per
     ``step_size``-tree cycle, under the global bins, or with ``own_bins``
@@ -265,7 +278,11 @@ def _final_fits(
     edges ((p, nb - 1), or (C, p, nb - 1) with ``own_bins``); with
     ``emit_trees`` the trees' arrays (budget, C, .) feat,
     thr_bin, internal, left, right, value, var_gain; with ``with_deviance``
-    train_deviance and holdout_deviance (budget, C)."""
+    train_deviance and holdout_deviance (budget, C).
+
+    ``mesh``: each rank grows its share of the chains (their bin tables
+    only, the bags drawn for all chains and sliced); every output is
+    gathered, so each rank returns all C chains'."""
     x = torch.as_tensor(x)
     dev_ = x.device
     n, p = x.shape
@@ -274,7 +291,8 @@ def _final_fits(
     c = ycols.shape[0]
     w = torch.ones((c, n), dtype=f32, device=dev_) if sample_w is None else \
         torch.as_tensor(sample_w, device=dev_).to(f32)
-    edges, xb, tables = _grow_inputs(x, n_bins, w if own_bins else None)
+    mine = None if mesh is None else share_rows(c, mesh).to(dev_)
+    edges, xb, tables = _grow_inputs(x, n_bins, w if own_bins else None, chains=mine)
     lr_col = torch.as_tensor(np.asarray(lr_vec), device=dev_).to(f32)[:, None]
     bt = torch.as_tensor(np.asarray(best_trees), device=dev_)
     act = (torch.arange(budget, device=dev_)[None, :] < bt[:, None]).to(f32)   # (C, budget)
@@ -288,21 +306,28 @@ def _final_fits(
     dev_w = torch.stack([w, test_w]).contiguous() if with_deviance else None
 
     f = f0[:, None].expand(c, n).contiguous()
+    ycols_k = ycols
+    if mine is not None:
+        f, ycols_k, scale = f[mine].contiguous(), ycols[mine].contiguous(), scale[:, mine]
+        dev_w = None if dev_w is None else dev_w[:, mine].contiguous()
     cycles = []
     for t0 in range(0, budget, step_size):
         count = min(step_size, budget - t0)
-        out = gbm_tree_cycle(tables, ycols, f, _stack_bags(bags, t0, count, (c, n), dev_, w), n_splits=n_splits,
+        bag = _stack_bags(bags, t0, count, (c, n), dev_, w)
+        if mine is not None:
+            bag = bag[:, mine].contiguous()
+        out = gbm_tree_cycle(tables, ycols_k, f, bag, n_splits=n_splits,
                              nb=n_bins, min_leaf=min_leaf, lr=1.0, scale=scale[t0 : t0 + count].contiguous(),
                              emit_tree=emit_trees, deviance_w=dev_w)
         f = out.f
         cycles.append(out)
-    res = dict(f0=f0, train_fit=f, tree_active=act, edges=edges)
+    res = dict(f0=f0, train_fit=gather_rows(f, c, mesh), tree_active=act, edges=edges)
     if emit_trees:
         names = ("feat", "thr_bin", "internal", "left", "right", "value", "var_gain")
         for k, name in enumerate(names):
-            res[name] = torch.cat([cy.trees[k] for cy in cycles])              # (budget, C, .)
+            res[name] = gather_rows(torch.cat([cy.trees[k] for cy in cycles]), c, mesh, dim=1)  # (budget, C, .)
     if with_deviance:
-        sums = torch.cat([cy.deviance for cy in cycles])                        # (budget, C, 2)
+        sums = gather_rows(torch.cat([cy.deviance for cy in cycles]), c, mesh, dim=1)  # (budget, C, 2)
         res["train_deviance"] = sums[:, :, 0] / wsum
         res["holdout_deviance"] = sums[:, :, 1] / test_sum
     return res
@@ -317,7 +342,7 @@ def fit_outer_batched(
     bag_fraction: float = 0.5, n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000,
     tolerance=None, min_leaf: float = 10.0, n_bins: int = 64, global_bins: bool = True,
     shared_bins: bool = True, selectors=None, bags: Callable | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, mesh=None,
 ):
     """gbm.step for ALL outer CV folds at once (the run_cv path; gaussian).
 
@@ -333,7 +358,11 @@ def fit_outer_batched(
     Injection: ``selectors`` (F, n) inner-fold ids; ``bags(stage)`` returns
     the per-tree bag callable of a stage, ``("curve", 0)`` for the CV curve
     (see ``_cv_deviance_curve_multi``) and ``("final", budget)`` for the
-    refits of ``budget`` trees each (``_final_fits``)."""
+    refits of ``budget`` trees each (``_final_fits``).
+
+    ``mesh``: the curve's chains and the refits split across the ranks
+    (``_cv_deviance_curve_multi``, ``_final_fits``); every rank returns the
+    full result."""
     x = torch.as_tensor(x)
     dev_ = x.device
     y = torch.as_tensor(y, device=dev_).to(x.dtype)
@@ -350,7 +379,7 @@ def fit_outer_batched(
         x, y, outer_train_w, n_folds=n_folds, n_splits=tree_complexity, lr=learning_rate,
         bag_fraction=bag_fraction, min_leaf=min_leaf, step_size=step_size, max_trees=max_trees,
         tolerance=tolerance, n_bins=n_bins, selectors=selectors, global_bins=global_bins,
-        shared_bins=shared_bins, bags=_stage_bags(bags, ("curve", 0)), generator=generator,
+        shared_bins=shared_bins, bags=_stage_bags(bags, ("curve", 0)), generator=generator, mesh=mesh,
     )
     np_dtype = np.float32 if x.dtype == torch.float32 else np.float64
     cv_mean = curve.dev.astype(np_dtype).mean(axis=2)          # (max_cp, F)
@@ -363,7 +392,7 @@ def fit_outer_batched(
         x, y, best_trees, budget=budget, n_splits=tree_complexity,
         lr_vec=np.full(f_outer, learning_rate), bag_fraction=bag_fraction, min_leaf=min_leaf,
         n_bins=n_bins, sample_w=outer_train_w, own_bins=not global_bins, bags=_stage_bags(bags, ("final", budget)),
-        generator=generator, step_size=step_size,
+        generator=generator, step_size=step_size, mesh=mesh,
     )
     return res["train_fit"], best_trees
 
@@ -373,7 +402,7 @@ def fit_multi(
     n_folds: int = 10, step_size: int = STEP_SIZE, max_trees: int = 10000, tolerance=None,
     min_leaf: float = 10.0, n_bins: int = 64, max_restarts: int = 3, statistics: bool = False,
     global_bins: bool = True, shared_bins: bool = True, selectors=None, bags: Callable | None = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, mesh=None,
 ) -> list:
     """gbm.step final fits for SEVERAL responses (ycols (n, R); gaussian,
     unweighted rows — mltps's final-fit case, V73:447/493), batched: every
@@ -396,6 +425,10 @@ def fit_multi(
     inner chains (``shared_bins``), or per inner fold on its own training
     rows.  The refits keep the full-data table either way: every row
     trains.
+
+    ``mesh``: every curve's chains and the refits split across the ranks;
+    the stopping and restart rules run on the gathered fits, the same on
+    every rank.
 
     Returns R GBMStepResult; each ``final`` carries its trees with raw
     thresholds ``edges[feat, thr_bin]``."""
@@ -427,7 +460,7 @@ def fit_multi(
             min_leaf=min_leaf, step_size=step_size, max_trees=max_trees, tolerance=tol[group],
             n_bins=n_bins, selectors=selectors[group], global_bins=global_bins, shared_bins=shared_bins,
             bags=_stage_bags(bags, ("curve", tuple(group), int(restarts[group[0]]))), generator=generator,
-            keep_fhist=statistics,
+            keep_fhist=statistics, mesh=mesh,
         )
         dev32 = curve.dev.astype(np_dtype)
         cv_mean = dev32.mean(axis=2)                            # (max_cp, group)
@@ -453,6 +486,7 @@ def fit_multi(
         x, ycols.T, best_trees, budget=budget, n_splits=tree_complexity, lr_vec=lr_used,
         bag_fraction=bag_fraction, min_leaf=min_leaf, n_bins=n_bins, with_deviance=True,
         emit_trees=True, bags=_stage_bags(bags, ("final", budget)), generator=generator, step_size=step_size,
+        mesh=mesh,
     )
     edges = res["edges"]                                        # (p, nb - 1)
     tr = lambda key: res[key].transpose(0, 1)                    # (R, budget, .)

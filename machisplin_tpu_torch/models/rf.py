@@ -86,7 +86,8 @@ def draw(w, p: int, *, ntree: int = NTREE, mtry: int | None = None, max_depth: i
 def fit(x, y, *, sample_weight=None, ntree: int = NTREE, mtry: int | None = None, max_depth: int = MAX_DEPTH,
         min_leaf: float = 5.0, n_bins: int = 64, boot_counts=None, scores=None,
         generator: torch.Generator | None = None) -> RFState:
-    """Grow ``ntree`` trees per lane.  ``boot_counts`` (L, ntree, n) raw
+    """Grow ``ntree`` trees per lane; a lane's forest does not depend on
+    how many lanes grow with it.  ``boot_counts`` (L, ntree, n) raw
     bootstrap counts and ``scores`` (L, ntree, 2^max_depth - 1, p) node
     feature scores (for one forest without the L axis) inject the draws,
     else ``draw`` makes them; the counts are scaled by n_active / n.  A single forest's state has no
@@ -116,9 +117,11 @@ def fit(x, y, *, sample_weight=None, ntree: int = NTREE, mtry: int | None = None
         scores = torch.as_tensor(scores).reshape(n_lanes * ntree, 2**max_depth - 1, p)
     tree, cur = grow_level_trees(
         xb, edges, y.repeat_interleave(ntree, dim=0), counts.reshape(n_lanes * ntree, n), max_depth=max_depth,
-        min_leaf=min_leaf, mtry=mtry, scores=scores, generator=generator, bin_cum1h=c1h,
+        min_leaf=min_leaf, mtry=mtry, scores=scores, generator=generator, bin_cum1h=c1h, block=ntree,
     )
-    train_pred = assigned_predict(tree.value, cur).reshape(n_lanes, ntree, n).mean(1)
+    # a forest at a time, so a lane's mean does not depend on the lane count
+    assigned = assigned_predict(tree.value, cur).reshape(n_lanes, ntree, n)
+    train_pred = torch.stack([a.mean(0) for a in assigned])
     trees = Tree(*(a.reshape((n_lanes, ntree) + a.shape[1:]) for a in tree))
     state = RFState(trees=trees, edges=edges, max_depth=max_depth, oob_count=counts, train_pred=train_pred)
     return lane(state, 0) if single else state

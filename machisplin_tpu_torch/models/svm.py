@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.svm_sweep import svm_sweep
+from ..parallel.sharded import gather_rows, share_rows
 from .base import as_weight
 
 __all__ = ["SVMState", "fit", "predict", "draw_sigest_pairs", "lane", "sweep_inputs"]
@@ -123,10 +124,20 @@ def sweep_inputs(x, y, w, pairs=None, sigma: float | None = None):
     return state, ys.contiguous(), q.contiguous(), diag.contiguous()
 
 
-def _fit_lanes(x, y, w, pairs, *, c_reg, epsilon, sigma, epochs):
-    """One chunk of lanes: x (L, n, p), y and w (L, n)."""
+def _fit_lanes(x, y, w, pairs, *, c_reg, epsilon, sigma, epochs, mesh=None):
+    """One chunk of lanes: x (L, n, p), y and w (L, n).  With a ``mesh``
+    each rank sweeps its share of the lanes (K4) and the multipliers are
+    gathered; the operands and the bias are computed for every lane."""
     state, ys, q, diag = sweep_inputs(x, y, w, pairs, sigma)
-    theta, lam = svm_sweep(q, ys, w.contiguous(), diag, c_reg=c_reg, epsilon=epsilon, mu=_MU, epochs=epochs)
+    w = w.contiguous()
+    if mesh is None:
+        theta, lam = svm_sweep(q, ys, w, diag, c_reg=c_reg, epsilon=epsilon, mu=_MU, epochs=epochs)
+    else:
+        n_lanes = ys.shape[0]
+        k = share_rows(n_lanes, mesh).to(ys.device)
+        theta, lam = (gather_rows(a, n_lanes, mesh) for a in svm_sweep(
+            q[k].contiguous(), ys[k].contiguous(), w[k].contiguous(), diag[k].contiguous(), c_reg=c_reg,
+            epsilon=epsilon, mu=_MU, epochs=epochs))
     # bias from the free support vectors' KKT conditions (libsvm/kernlab);
     # the converged multiplier is the fallback when none is strictly free
     free = (theta.abs() > 1e-6) & (theta.abs() < 0.999 * c_reg) & (w > 0)
@@ -137,10 +148,12 @@ def _fit_lanes(x, y, w, pairs, *, c_reg, epsilon, sigma, epochs):
 
 
 def fit(x, y, *, sample_weight=None, c_reg: float = 1.0, epsilon: float = 0.1, sigma: float | None = None,
-        epochs: int = 120, pairs=None, generator: torch.Generator | None = None) -> SVMState:
+        epochs: int = 120, pairs=None, generator: torch.Generator | None = None, mesh=None) -> SVMState:
     """Fit one SVR per lane.  ``y`` (n,) or (L, n); ``x`` (n, p) or (L, n, p);
     ``pairs`` the sigest draws (i, j), each (L, m) (or (m,) for one model),
-    else drawn from ``generator``.  A single model's state has no lane axis."""
+    else drawn from ``generator``.  A single model's state has no lane axis.
+    ``mesh``: the sweep's lanes split across the ranks (``_fit_lanes``);
+    every rank returns every lane."""
     x = torch.as_tensor(x)
     y = torch.as_tensor(y, device=x.device).to(x.dtype)
     single = y.dim() == 1
@@ -158,7 +171,7 @@ def fit(x, y, *, sample_weight=None, c_reg: float = 1.0, epsilon: float = 0.1, s
     parts = [
         _fit_lanes(xl[s : s + chunk], y[s : s + chunk], w[s : s + chunk],
                    None if sigma is not None else tuple(a[s : s + chunk] for a in pairs),
-                   c_reg=c_reg, epsilon=epsilon, sigma=sigma, epochs=epochs)
+                   c_reg=c_reg, epsilon=epsilon, sigma=sigma, epochs=epochs, mesh=mesh)
         for s in range(0, n_lanes, chunk)
     ]
     state = SVMState(*(torch.cat(a, dim=0) for a in zip(*parts)))

@@ -343,8 +343,10 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
 
 
 # (trees x 2 n_nodes x rows) weighted node one-hot values contracted at once
-# by grow_level_trees: bounds the deep levels' tables (~0.13 GB in float32)
-_LEVEL_ELEMS = 1 << 25
+# by grow_level_trees: bounds the deep levels' tables (~0.5 GB in float32).
+# Each chunk is a few dozen launches from the host, so the bound is what
+# keeps the grower's launch count near one chunk a forest a level
+_LEVEL_ELEMS = 1 << 27
 
 
 def draw_mtry_scores(n_trees: int, max_depth: int, p: int, generator: torch.Generator | None = None):
@@ -353,8 +355,17 @@ def draw_mtry_scores(n_trees: int, max_depth: int, p: int, generator: torch.Gene
     return torch.rand((n_trees, 2**max_depth - 1, p), generator=generator, dtype=torch.float64)
 
 
+def _tree_chunks(n_trees: int, chunk: int, block: int):
+    """[t0, t1) runs of at most ``chunk`` trees that start afresh at every
+    multiple of ``block``."""
+    for b0 in range(0, n_trees, block):
+        b1 = min(b0 + block, n_trees)
+        for t0 in range(b0, b1, chunk):
+            yield t0, min(t0 + chunk, b1)
+
+
 def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float = 5.0, mtry: int | None = None,
-                     scores=None, generator: torch.Generator | None = None, bin_cum1h=None):
+                     scores=None, generator: torch.Generator | None = None, bin_cum1h=None, block: int | None = None):
     """T CART regression trees grown level-wise to ``max_depth`` (heap
     layout: node q's children are 2q + 1 and 2q + 2), randomForest's
     semantics: SSE-decrease splits over a random ``mtry``-feature subset
@@ -367,7 +378,10 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
     table's last bin; a node splits if its best gain exceeds 1e-9.  When
     ``mtry`` < p, node q of tree t draws its features from ``scores[t, q]``
     (T, 2^max_depth - 1, p) uniforms: the ``mtry`` largest (ties
-    included).  Leaf values are exact weighted means.
+    included).  Leaf values are exact weighted means.  The trees are
+    grown a chunk at a time; a chunk never spans two runs of ``block``
+    trees (default: all of them), so each forest of ``block`` trees sees
+    the same shapes, and its bits, however many forests grow with it.
 
     Returns (Tree of (T, 2^(max_depth+1) - 1) arrays, cur (T, n) the
     terminal node of every training row)."""
@@ -393,13 +407,12 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
     internal = torch.zeros((n_trees, n_total), dtype=dtype, device=dev)
     var_gain = torch.zeros((n_trees, p), dtype=dtype, device=dev)
     cur = torch.zeros((n_trees, n), dtype=torch.int64, device=dev)
+    block = block or n_trees
 
     for level in range(max_depth):
         offset, n_nodes = 2**level - 1, 2**level
         nodes = torch.arange(n_nodes, device=dev)
-        chunk = max(1, _LEVEL_ELEMS // (2 * n_nodes * n))
-        for t0 in range(0, n_trees, chunk):
-            t1 = min(t0 + chunk, n_trees)
+        for t0, t1 in _tree_chunks(n_trees, max(1, _LEVEL_ELEMS // (2 * n_nodes * n)), block):
             tc = t1 - t0
             local = cur[t0:t1] - offset                              # valid iff in [0, n_nodes)
             node1h = (local[:, None, :] == nodes[None, :, None]).to(dtype)           # (tc, N, n)
@@ -427,8 +440,14 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
             child = 2 * cur[t0:t1] + 1 + (sample_bin > bbin.gather(1, lc)).long()
             cur[t0:t1] = torch.where(in_level & do_split.gather(1, lc), child, cur[t0:t1])
 
-    sw = torch.zeros((n_trees, n_total), dtype=dtype, device=dev).scatter_add_(1, cur, ws)
-    swy = torch.zeros((n_trees, n_total), dtype=dtype, device=dev).scatter_add_(1, cur, wys)
+    # each node's weight and weighted-y sums as one-hot products, a chunk of
+    # trees at a time: a scatter-add sums with atomics on the card, in an
+    # order (and to last bits) that changes from run to run
+    sums = torch.empty((n_trees, 2, n_total), dtype=dtype, device=dev)
+    node_iota = torch.arange(n_total, device=dev)
+    for t0, t1 in _tree_chunks(n_trees, max(1, _LEVEL_ELEMS // (n * n_total)), block):
+        sums[t0:t1] = torch.stack([ws[t0:t1], wys[t0:t1]], 1) @ (cur[t0:t1, :, None] == node_iota).to(dtype)
+    sw, swy = sums[:, 0], sums[:, 1]
     value = swy / sw.clamp_min(1e-12)
     heap = torch.arange(n_total, device=dev).expand(n_trees, n_total)
     tree = Tree(feat=feat, thr=edges_lookup(edges, feat, thr_bin), internal=internal, left=2 * heap + 1,

@@ -21,11 +21,21 @@ model lives on, as the JAX package's concrete branch does on the host, then
 the GCV and the coefficients return to the coordinates' dtype as there.
 Prediction is ``tps_predict_grid`` with the landmarks as knots (K1 on the
 card).
+
+With a device mesh (``parallel/sharded.py``) the station axis splits across
+the ranks by whole chunks: each rank streams the cross-products of its
+chunks, and every rank sums all chunks' in the unsharded order, so the fit
+is the unsharded one bit for bit (an all-reduce of per-rank sums moved
+config 4's float64 coefficients by 3e-4 of their scale: the whitened
+system is that ill-conditioned).  The landmarks (k-means over all
+stations), the float64 tail and the GCV run on every rank, with rank 0's
+lambda and coefficients broadcast; the fitted pass splits by chunks too.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.sharded import broadcast_tensor, gather_rows, rank_world
 from ..utils import resolve_device
 from ..utils.timing import PhaseTimer
 from .tps import TPSModel, _pairwise_r2, _phi
@@ -77,28 +87,59 @@ def _basis(xi, z):
     return torch.cat([ones, xi, _phi(_pairwise_r2(xi, z))], dim=1)
 
 
-def _stream_stats(xs, ycols, z, chunk):
-    """G = B'B, B'y and y'y over the stations, in chunks of ``chunk`` rows.
-    The JAX package pads the last chunk with weight-0 rows, which add
-    exact zeros; here it is just shorter."""
+def _chunk_stats(xi, yi, z):
+    """One chunk's B'B, B'y and y'y."""
+    b_i = _basis(xi, z)
+    return b_i.T @ b_i, b_i.T @ yi, (yi * yi).sum(0)
+
+
+def _chunk_share(n: int, chunk: int, mesh):
+    """This rank's chunks [c0, c1) of the stations in chunks of ``chunk``
+    rows, the chunk count and the chunks a rank."""
+    n_chunks = -(-n // chunk)
+    rank, world = rank_world(mesh)
+    per = -(-n_chunks // world)
+    return min(rank * per, n_chunks), min((rank + 1) * per, n_chunks), n_chunks, per
+
+
+def _stream_stats(xs, ycols, z, chunk, mesh=None):
+    """G = B'B, B'y and y'y over the stations, in chunks of ``chunk`` rows,
+    summed in chunk order.  The JAX package pads the last chunk with
+    weight-0 rows, which add exact zeros; here it is just shorter.  With a
+    ``mesh`` each rank computes its chunks' terms and every rank sums all
+    of them, gathered, in the same order."""
     p_dim = 3 + z.shape[0]
     dt, dev = xs.dtype, xs.device
-    g = torch.zeros((p_dim, p_dim), dtype=dt, device=dev)
-    bty = torch.zeros((p_dim, ycols.shape[1]), dtype=dt, device=dev)
-    yy = torch.zeros((ycols.shape[1],), dtype=dt, device=dev)
-    for s in range(0, xs.shape[0], chunk):
-        b_i = _basis(xs[s : s + chunk], z)
-        yi = ycols[s : s + chunk]
-        g += b_i.T @ b_i
-        bty += b_i.T @ yi
-        yy += (yi * yi).sum(0)
-    return g, bty, yy
+    n = xs.shape[0]
+    sums = [torch.zeros((p_dim, p_dim), dtype=dt, device=dev), torch.zeros((p_dim, ycols.shape[1]), dtype=dt,
+            device=dev), torch.zeros((ycols.shape[1],), dtype=dt, device=dev)]
+    if mesh is None:
+        terms = (_chunk_stats(xs[s : s + chunk], ycols[s : s + chunk], z) for s in range(0, n, chunk))
+    else:
+        c0, c1, n_chunks, per = _chunk_share(n, chunk, mesh)
+        mine = [_chunk_stats(xs[i * chunk : (i + 1) * chunk], ycols[i * chunk : (i + 1) * chunk], z)
+                for i in range(c0, c1)]
+        stacked = [torch.stack([t[k] for t in mine] + [torch.zeros_like(sums[k])] * (per - len(mine)))
+                   for k in range(3)]
+        terms = zip(*(gather_rows(a, n_chunks, mesh) for a in stacked))
+    for term in terms:
+        for acc, t in zip(sums, term):
+            acc += t
+    return tuple(sums)
 
 
-def _stream_fitted(xs, z, d, c, chunk):
-    """Fitted values (n, R), in chunks of ``chunk`` stations."""
+def _stream_fitted(xs, z, d, c, chunk, mesh=None):
+    """Fitted values (n, R), in chunks of ``chunk`` stations; with a
+    ``mesh`` each rank computes its chunks' and they are gathered."""
     beta = torch.cat([d, c], dim=0)
-    return torch.cat([_basis(xs[s : s + chunk], z) @ beta for s in range(0, xs.shape[0], chunk)], dim=0)
+    n = xs.shape[0]
+    if mesh is None:
+        return torch.cat([_basis(xs[s : s + chunk], z) @ beta for s in range(0, n, chunk)], dim=0)
+    c0, c1, _, per = _chunk_share(n, chunk, mesh)
+    mine = [_basis(xs[i * chunk : (i + 1) * chunk], z) @ beta for i in range(c0, c1)]
+    rows = sum(len(f) for f in mine)
+    pad = beta.new_zeros((per * chunk - rows, beta.shape[1]))
+    return gather_rows(torch.cat(mine + [pad]), n, mesh)
 
 
 def _whitened_eigh(g, bty, kzz):
@@ -140,7 +181,7 @@ def _logspace(lo: float, hi: float, num: int, dtype, device):
 
 def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
                     generator: torch.Generator | None = None, chunk: int = 65536, ngrid: int = 128,
-                    device=None, timer: PhaseTimer | None = None) -> TPSModel:
+                    device=None, timer: PhaseTimer | None = None, mesh=None) -> TPSModel:
     """Fit the reduced-basis smoothing spline; returns a TPSModel whose knots
     are the (range-scaled) landmarks, so every TPS prediction path applies.
 
@@ -150,7 +191,10 @@ def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
     m of them from ``generator``.  The fit runs on ``device``: by default the
     device of ``coords`` when it is a tensor, else the GPU.  ``timer``
     collects the seconds of its steps ("landmarks", "stream_stats",
-    "f64_tail", "gcv_coef", "fitted"), each synchronised on a GPU."""
+    "f64_tail", "gcv_coef", "fitted"), each synchronised on a GPU.
+    ``mesh``: every rank calls with the same inputs; the two streamed passes
+    split over the stations by whole chunks and every rank returns the
+    unsharded model."""
     timer = timer or PhaseTimer()
     if device is None:
         device = coords.device if isinstance(coords, torch.Tensor) else "cuda"
@@ -172,14 +216,15 @@ def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
             z = (torch.as_tensor(landmarks, device=dev).to(dtype) - cmin) / crange
     with timer.phase("stream_stats"):
         kzz = _phi(_pairwise_r2(z, z))
-        g, bty, yy = _stream_stats(xs, ycols, z, chunk)
+        g, bty, yy = _stream_stats(xs, ycols, z, chunk, mesh)
     with timer.phase("f64_tail"):
         evals, u, uu, r, scale = (a.to(dtype) for a in _whitened_eigh(g, bty, kzz))
 
     with timer.phase("gcv_coef"):
         lam_sel, gcv_min, s, c, d = _gcv_and_coef(evals, u, uu, r, scale, yy, n, lam, ngrid)
+        lam_sel, gcv_min, s, c, d = (broadcast_tensor(a, mesh) for a in (lam_sel, gcv_min, s, c, d))
     with timer.phase("fitted"):
-        fitted = _stream_fitted(xs, z, d, c, chunk)
+        fitted = _stream_fitted(xs, z, d, c, chunk, mesh)
     residuals = ycols - fitted
     eff_df = s.sum(0)
     if single:

@@ -5,7 +5,7 @@ a fitted spline at every cell centre of a grid from the same tables, which
 ``grid_tables`` builds as ``_compiled_grid_eval`` does on the host:
 
 * only the live knots: a knot whose c is 0 in every response (a knot
-  budget's padding, ``parallel/tiles.pack_tiles``) adds nothing and is left
+  budget's padding, ``parallel/sharded.pack_tiles``) adds nothing and is left
   out; the rest are padded to a multiple of the kernel's unroll width (4)
   with coordinate 0.5 and c = 0;
 * phi's 1/2 folded into c, so the inner loop computes r2 * log(max(r2, tiny));

@@ -1,3 +1,3 @@
-from .tiles import batched_tile_solve, pack_tiles
+from .sharded import batched_tile_solve, batched_tile_tps, make_mesh, pack_tiles, tile_tps_predict
 
-__all__ = ["batched_tile_solve", "pack_tiles"]
+__all__ = ["batched_tile_solve", "batched_tile_tps", "make_mesh", "pack_tiles", "tile_tps_predict"]

@@ -23,6 +23,16 @@ responses or serial for one, and a merged-forest raster pass on kernel K3), GAM 
 L-BFGS of ``models/nn.py``), MARS (``m``), RF (``r``: level-wise trees, and
 the same merged-forest raster pass on K3) and SVM (``v``: the coordinate
 sweep on kernel K4).
+
+With a device mesh (``MLTPSConfig.mesh``, ``parallel/sharded.py``) every
+rank runs ``mltps`` on the same inputs: the CV and the batched BRT finals
+split their kernels' work (``ensemble/cv.py``), every raster pass its
+cells and the tiled TPS its tiles' K1 predictions, each share gathered;
+the NN and RF finals are fitted on rank 0 and sent to every rank (drawn on
+every rank first); the weight search, the keep-if-R^2-improves rule and
+the finals' station predictions and importances are rank 0's, broadcast;
+files are written by rank 0.  Every rank returns the same results, those
+of the same call without a mesh.
 """
 from __future__ import annotations
 
@@ -42,7 +52,10 @@ from ..models.trees import Tree
 from ..ops.feather import feather_blend
 from ..ops.forest import build_leaf_bins, predict_prepared, prepare_forest
 from ..ops.tps import TPSModel, tps_fit, tps_predict_grid
-from ..parallel.tiles import batched_tile_solve, pack_tiles
+from ..parallel.sharded import (
+    batched_tile_solve, broadcast_object, broadcast_tensor, gather_rows, pack_tiles, predict_tiles, rank0_result,
+    rank_world,
+)
 from ..utils import resolve_device
 from ..utils.timing import PhaseTimer
 from .importance import breakdown_importance
@@ -88,6 +101,10 @@ class MLTPSConfig:
     letters_pool: str | None = None  # restrict the algorithm pool (extension)
     predict_block_rows: int = 256
     svm_importance_sample: int = 200  # V73:564
+    # device mesh for multi-device runs (parallel/sharded.make_mesh): the
+    # kernels' work of the CV, the batched BRT finals, the raster passes and
+    # the TPS tiles splits across its ranks
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -105,22 +122,31 @@ class LayerResult:
     weights: WeightResult | None = None
 
 
-def predict_over_stack(predict_fn, rast_stack: Raster, block_rows: int = 256, out_cols: int | None = None):
+def predict_over_stack(predict_fn, rast_stack: Raster, block_rows: int = 256, mesh=None,
+                       out_cols: int | None = None):
     """Stream model prediction over the grid in row blocks -> (H, W), or
     (H, W, R) when ``predict_fn`` returns (m, R) (``out_cols`` = R).
 
     Replaces terra::predict(rast_stack, model) (V73:468/497/521/543/582/604).
-    Cells with any NaN covariate predict NaN."""
+    Cells with any NaN covariate predict NaN.  With a ``mesh`` each block's
+    cells split across the ranks (padded with NaN cells to a multiple of
+    the world size); every rank predicts its panel and the panels are
+    gathered."""
     c, h, w = rast_stack.data.shape
     data = rast_stack.data
     nan = torch.full((), float("nan"), dtype=data.dtype, device=data.device)
+    rank, world = rank_world(mesh)
     rows = []
     for r0 in range(0, h, block_rows):
         blk = data[:, r0 : r0 + block_rows, :]
         x = blk.movedim(0, -1).reshape(-1, c)
+        m = x.shape[0]
+        if mesh is not None:
+            per = -(-m // world)
+            x = torch.cat([x, x.new_full((per * world - m, c), float("nan"))])[rank * per : (rank + 1) * per]
         ok = torch.isfinite(x).all(dim=1)
         pred = predict_fn(torch.where(ok[:, None], x, torch.zeros((), dtype=x.dtype, device=x.device)))
-        pred = torch.where(ok[:, None] if out_cols is not None else ok, pred, nan)
+        pred = gather_rows(torch.where(ok[:, None] if out_cols is not None else ok, pred, nan), m, mesh)
         shape = (blk.shape[1], w) if out_cols is None else (blk.shape[1], w, out_cols)
         rows.append(pred.reshape(shape))
     return torch.cat(rows, dim=0)
@@ -169,7 +195,12 @@ def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=N
         y_min = ycols.amin(0)
         y_max = (ycols - y_min[None, :]).amax(0).clamp_min(1e-30)
         yn = (ycols - y_min[None, :]) / y_max[None, :]
-        states = nn.fit(x, yn.T.contiguous(), init=nn_init, generator=generator, **config.final_nn)
+        if config.mesh is not None and nn_init is None:
+            # drawn on every rank, fitted on rank 0 (see the module docstring)
+            nn_init = nn.draw_init(n_resp, x.shape[1], config.final_nn.get("hidden", 10),
+                                   config.final_nn.get("init_range", 0.7), generator, x.dtype, x.device)
+        states = rank0_result(config.mesh, x.device, nn.fit, x, yn.T.contiguous(), init=nn_init, generator=generator,
+                              **config.final_nn)
         fn = lambda q: nn.predict(states, q).T * y_max[None, :] + y_min[None, :]
         imps = [nn.importance(nn.NNState(*(a[j] for a in states)), names) for j in range(n_resp)]
         return fn, imps
@@ -198,11 +229,12 @@ def _fit_final_batched(letter, x, ycols, names, config: MLTPSConfig, generator=N
     raise ValueError(letter)
 
 
-def _forest_tables(trees: Tree, n_feat: int):
+def _forest_tables(trees: Tree, n_feat: int, mesh=None):
     """Bin-interval leaf tables of a forest (``ops.forest.build_leaf_bins``,
     a host walk of the trees).  The port has no host tree predictor, so its
     raster passes always take the forest predictor: K3 on the card, the
-    plain version on the CPU."""
+    plain version on the CPU, with or without a ``mesh`` (the JAX
+    signature's; every rank builds the tables)."""
     return build_leaf_bins(Tree(*(a.cpu() for a in trees)), n_feat=n_feat)
 
 
@@ -219,7 +251,7 @@ def _final_brt(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generat
     n_resp = ycols.shape[1]
     with timer.phase(f"final_fit_b_x{n_resp}"):
         if n_resp > 1 and config.batch_final_brt:
-            results = gbm_step.fit_multi(x, ycols, generator=generator, **config.final_brt)
+            results = gbm_step.fit_multi(x, ycols, generator=generator, mesh=config.mesh, **config.final_brt)
         else:
             results = [gbm_step.fit(x, ycols[:, j], generator=generator, **config.final_brt) for j in range(n_resp)]
     with timer.phase("importance_b"):
@@ -236,10 +268,10 @@ def _final_brt(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, generat
         off += nt
     f0s = torch.as_tensor([float(r.final.f0) for r in results], dtype=torch.float32, device=x.device)
     with timer.phase("forest_tables_b"):
-        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1]), x.device)
+        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1], config.mesh), x.device)
     bfn = lambda q: (predict_prepared(ftab, q) + f0s[None, :]).to(q.dtype)
     with timer.phase(f"raster_predict_b_x{n_resp}"):
-        bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=n_resp)
+        bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, config.mesh, out_cols=n_resp)
     bpt = torch.stack([r.final.train_fit for r in results], dim=1).to(x.dtype)
     return bsurf, bpt, imps
 
@@ -254,20 +286,22 @@ def _final_rf_batched(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, 
     Returns (surfaces (H, W, R), station predictions (n, R), [importance
     dicts])."""
     n_resp = ycols.shape[1]
+    if rf_draws is None and config.mesh is not None:   # drawn on every rank, grown on rank 0
+        rf_draws = rf.draw(torch.ones((n_resp, x.shape[0])), x.shape[1], generator=generator, **config.final_rf)
     counts, scores = rf_draws if rf_draws is not None else (None, None)
     with timer.phase(f"final_fit_r_x{n_resp}"):
-        states = rf.fit(x, ycols.T.contiguous(), boot_counts=counts, scores=scores, generator=generator,
-                        **config.final_rf)
+        states = rank0_result(config.mesh, x.device, rf.fit, x, ycols.T.contiguous(), boot_counts=counts,
+                              scores=scores, generator=generator, **config.final_rf)
     with timer.phase("importance_r"):
         imps = [rf.importance(rf.lane(states, j), x, ycols[:, j], names) for j in range(n_resp)]
     ntree = states.trees.feat.shape[1]
     merged = Tree(*(a.reshape((n_resp * ntree,) + a.shape[2:]) for a in states.trees))
     wmat = torch.kron(torch.eye(n_resp), torch.full((ntree, 1), 1.0 / ntree)).to(x.device)
     with timer.phase("forest_tables_r"):
-        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1]), x.device)
+        ftab = prepare_forest(merged, wmat, _forest_tables(merged, x.shape[1], config.mesh), x.device)
     rfn = lambda q: predict_prepared(ftab, q).to(q.dtype)
     with timer.phase(f"raster_predict_r_x{n_resp}"):
-        rsurf = predict_over_stack(rfn, rast_stack, config.predict_block_rows, out_cols=n_resp)
+        rsurf = predict_over_stack(rfn, rast_stack, config.predict_block_rows, config.mesh, out_cols=n_resp)
     return rsurf, rfn(x), imps
 
 
@@ -286,17 +320,17 @@ def _final_rf_serial(x, ycols, names, rast_stack: Raster, config: MLTPSConfig, g
     surfs, pts, imps = [], [], []
     for j in range(n_resp):
         with timer.phase(f"final_fit_r_{j}"):
-            state = rf.fit(x, ycols[:, j], boot_counts=counts[j], scores=None if scores is None else scores[j],
-                           **config.final_rf)
+            state = rank0_result(config.mesh, x.device, rf.fit, x, ycols[:, j], boot_counts=counts[j],
+                                 scores=None if scores is None else scores[j], **config.final_rf)
         with timer.phase(f"importance_r_{j}"):
             imps.append(rf.importance(state, x, ycols[:, j], names))
         ntree = state.trees.feat.shape[0]
         wvec = torch.full((ntree, 1), 1.0 / ntree, device=x.device)
         with timer.phase(f"forest_tables_r_{j}"):
-            ftab = prepare_forest(state.trees, wvec, _forest_tables(state.trees, x.shape[1]), x.device)
+            ftab = prepare_forest(state.trees, wvec, _forest_tables(state.trees, x.shape[1], config.mesh), x.device)
         rfn = lambda q, ft=ftab: predict_prepared(ft, q).to(q.dtype)
         with timer.phase(f"raster_predict_r_{j}"):
-            surfs.append(predict_over_stack(rfn, rast_stack, config.predict_block_rows, out_cols=1))
+            surfs.append(predict_over_stack(rfn, rast_stack, config.predict_block_rows, config.mesh, out_cols=1))
         pts.append(rfn(x))
     return torch.cat(surfs, dim=-1), torch.cat(pts, dim=1), imps
 
@@ -402,10 +436,11 @@ def _batched_tile_surfaces(coords, res_mat, crops, sels, config, dtype, dev):
         batched_tile_solve(ct[s : s + chunk], yt[s : s + chunk], mt_[s : s + chunk])
         for s in range(0, len(live), chunk)
     ]
-    for i, h in enumerate(live):
-        model_i = TPSModel(*(a[i % chunk] for a in models[i // chunk]))
-        g = crops[h].grid
-        surf = tps_predict_grid(model_i, g, block_rows=config.predict_block_rows)
+    # one K1 grid prediction per tile; with a mesh each rank predicts its
+    # share of the tiles (the solves above are the same on every rank)
+    tile_models = [TPSModel(*(a[i % chunk] for a in models[i // chunk])) for i in range(len(live))]
+    grids = [crops[h].grid for h in live]
+    for h, g, surf in zip(live, grids, predict_tiles(tile_models, grids, config.mesh, config.predict_block_rows)):
         surfs[h] = Raster(surf.to(dtype).movedim(-1, 0), g)
     return surfs
 
@@ -437,7 +472,9 @@ def mltps(
     ``log_file`` tees the run's progress to a log file (the reference's
     MachiSplin.LOG.txt sink, V73:200); ``timer`` collects per-phase
     durations."""
-    if log_file is not None:
+    config = config or MLTPSConfig()
+    mesh = config.mesh
+    if log_file is not None and rank_world(mesh)[0] == 0:
         from ..utils.logging import run_log
 
         with run_log(log_file):
@@ -445,7 +482,6 @@ def mltps(
                          generator=generator, device=device, timer=timer)
     dev = resolve_device(device)
     timer = timer or PhaseTimer()
-    config = config or MLTPSConfig()
     letters_pool = SMOOTH_LETTERS if smooth_outputs_only else "bgnmrv"
     if config.letters_pool is not None:
         letters_pool = "".join(l for l in letters_pool if l in config.letters_pool)
@@ -472,7 +508,7 @@ def mltps(
     with timer.phase("cv_all_responses"):
         cv_all = run_cv(
             x, torch.as_tensor(ys_all, dtype=dtype, device=dev), config=config.cv,
-            algorithms=letters_pool, folds=folds, generator=generator, timer=timer,
+            algorithms=letters_pool, folds=folds, generator=generator, timer=timer, mesh=mesh,
         )
 
     wres_all, kept_all = [], []
@@ -489,6 +525,7 @@ def mltps(
             log.info("layer %s kept: %s weights %s (%s%%)", name, mods_run, wres.kept_weights, wres.percent_text)
             wres_all.append(wres)
             kept_all.append((mods_run, kept))
+        wres_all, kept_all = broadcast_object((wres_all, kept_all), mesh)
 
     # part 2 — final fits, letter-major and batched across the responses
     # that keep the letter; each letter's surfaces go straight into
@@ -512,8 +549,10 @@ def mltps(
             with timer.phase(f"final_fit_{letter}_x{len(sel)}"):
                 bfn, imps = _fit_final_batched(letter, x, ycols, covar_names, config, generator)
             with timer.phase(f"raster_predict_{letter}_x{len(sel)}"):
-                bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, out_cols=len(sel))
+                bsurf = predict_over_stack(bfn, rast_stack, config.predict_block_rows, mesh, out_cols=len(sel))
             bpt = bfn(x)
+        if mesh is not None:
+            bpt, imps = broadcast_tensor(bpt, mesh), broadcast_object(imps, mesh)
         for j, i in enumerate(sel):
             wgt = float(kept_all[i][1][letter])
             var_imps[i][letter] = imps[j]
@@ -566,7 +605,7 @@ def mltps(
                 # UNCONDITIONALLY inside the tps==TRUE block (V73:914)
                 residuals_out = np.stack([y_np - f_at, coords[:, 0], coords[:, 1]], axis=1)
                 # keep the correction only if it improves R^2 (V73:925-930)
-                if rsq_final > rsq_model:
+                if broadcast_object(rsq_final > rsq_model, mesh):
                     final_raster = final_c
             results.append(LayerResult(
                 name=name, final=final_raster, residuals=residuals_out, var_imp=var_imp,

@@ -32,6 +32,7 @@ import numpy as np
 
 from ..grid import GridSpec, Raster, crop
 from ..ops.feather import feather_blend
+from ..parallel.sharded import on_rank0
 
 __all__ = ["TileSet", "tiles_create", "tiles_id", "tiles_merge"]
 
@@ -91,12 +92,14 @@ def tiles_create(
     )
 
 
-def tiles_id(tiles: TileSet, plot: bool = False, save_path: str | None = None) -> list[dict]:
+def tiles_id(tiles: TileSet, plot: bool = False, save_path: str | None = None, mesh=None) -> list[dict]:
     """Tile ordering info; the reference plots tile polygons with red id
     numbers (V73:1289-1292) so users order per-tile results for tiles_merge.
     ``plot=True`` (or ``save_path``) draws the same diagram via matplotlib,
     imported here, when it is installed; the layout data is always
-    returned."""
+    returned.  With a device ``mesh`` rank 0 draws and saves it."""
+    if mesh is not None:
+        return on_rank0(mesh, tiles_id, tiles, plot, save_path)
     info = [
         {"id": i, "center": c, "extent": e}
         for i, c, e in zip(tiles.ids, tiles.centers, tiles.extents)

@@ -4,7 +4,8 @@
 The reference tees every progress print to 'MachiSplin.LOG.txt' via sink()
 (V73:200/966).  The port's pipeline logs through the ``machisplin_tpu_torch``
 logger and its children; ``run_log`` attaches a file handler to it for the
-length of a run, and ``banner`` writes a phase banner.
+length of a run, and ``banner`` writes a phase banner.  Under a device mesh
+``mltps`` opens the file on rank 0 only.
 """
 from __future__ import annotations
 

@@ -67,13 +67,13 @@ def test_k1_skips_a_knot_budgets_padding(cuda, live):
     """A tile packed to a 64-knot budget: K1 evaluates its live knots only
     (padded to the unroll width 4) and agrees with the plain version, and
     with the plain version of every budget knot, to 2e-4 of max|surface|."""
-    from machisplin_tpu_torch.parallel import tiles as ttiles
+    from machisplin_tpu_torch.parallel import sharded as tsharded
 
     rng = np.random.default_rng(live)
     pts = [rng.uniform(-3, 2, size=(live, 2)), rng.uniform(-3, 2, size=(64, 2))]
     ys = [np.stack([np.sin(2 * p[:, 0]) * np.cos(p[:, 1]), p[:, 0] ** 2], 1) for p in pts]
-    ct, yt, mt = ttiles.pack_tiles(pts, ys, pad_to=64, dtype=torch.float64, device=cuda)
-    model = ttps.TPSModel(*(a[0] for a in ttiles.batched_tile_solve(ct, yt, mt)))
+    ct, yt, mt = tsharded.pack_tiles(pts, ys, pad_to=64, dtype=torch.float64, device=cuda)
+    model = ttps.TPSModel(*(a[0] for a in tsharded.batched_tile_solve(ct, yt, mt)))
     g = tgrid.GridSpec(nrows=97, ncols=613, xmin=-3.1, ymax=2.2, dx=5.3 / 613, dy=5.4 / 97)
     tab = ttg.grid_tables(model, g, torch.float32)
     assert tab.c.shape == (2, -(-live // 4) * 4)
@@ -668,3 +668,66 @@ def test_nystrom_on_card_matches_cpu(cuda):
     tab = ttg.grid_tables(gpu, g, torch.float32)
     got, want = ttg.tps_grid_cuda(tab, g), ttg.tps_grid_plain(tab, g)
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+def test_rf_forests_do_not_depend_on_the_lane_count(cuda):
+    """The RF's (response x fold) forests at the north-star CV's shape (813
+    stations, 3 covariates, 10 lanes of 500 trees) grown in one call, five
+    lanes a call (a rank's share of two) and one a call: bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    n, p, lanes, ntree = 813, 3, 10, 500
+    x = torch.rand((n, p), generator=gen).to(cuda)
+    y = (torch.sin(4 * x[:, 0]) + x[:, 1] * x[:, 2])[None] + 0.1 * torch.randn((lanes, n), generator=gen).to(cuda)
+    w = (torch.rand((lanes, n), generator=gen) > 0.1).float().to(cuda)
+    counts, scores = trf.draw(w, p, ntree=ntree, generator=gen)
+
+    def grow(a, b):
+        st = trf.fit(x, y[a:b], sample_weight=w[a:b], boot_counts=counts[a:b], scores=scores[a:b], ntree=ntree)
+        return [st.train_pred, *st.trees]
+
+    whole = grow(0, lanes)
+    for step in (5, 1):
+        parts = [grow(a, a + step) for a in range(0, lanes, step)]
+        for k, want in enumerate(whole):
+            got = torch.cat([part[k] for part in parts])
+            assert torch.equal(got.view(-1).view(torch.uint8), want.view(-1).view(torch.uint8)), (step, k)
+
+
+def test_mesh_on_the_card_matches_unsharded(cuda, tmp_path):
+    """Two gloo ranks on the card (``tests/torch_mesh_cases.py``): K2 over
+    9 boosting chains (3 outer x 3 inner folds), K3 over a raster's cells,
+    K4 over the SVM's 8 lanes and the RF's 8 forests, each rank's share
+    gathered, bit for bit against the same calls without a mesh; every
+    rank the same."""
+    import torch_mesh_cases as cases
+
+    from machisplin_tpu_torch.kernels.build import build_all
+
+    build_all()                         # once, before the ranks start
+    names = ["gbm_outer", "forest_cells", "cv_v", "cv_r"]
+    (tmp_path / "ranks").mkdir()
+    ranks = cases.ranks_done(cases.start_ranks(2, names, tmp_path / "ranks", device="cuda"))
+    ref = cases.unsharded_done(cases.start_unsharded(names, tmp_path, device="cuda"))
+    for name in names:
+        for key, want in ref[name].items():
+            for r, got in enumerate(ranks):
+                a, b = torch.as_tensor(got[name][key]).cpu(), torch.as_tensor(want).cpu()
+                assert a.dtype == b.dtype and torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8)), \
+                    f"{name}/{key} on rank {r}"
+
+
+def test_native_decoder_reads_onto_the_card(cuda, tmp_path, monkeypatch):
+    """A GeoTIFF read onto the card through the host library's decoder is
+    the pure-Python codec's read, bit for bit."""
+    from machisplin_tpu_torch.io import geotiff, native
+
+    assert native.load_native() is not None
+    g = tgrid.GridSpec(nrows=300, ncols=200, xmin=0.0, ymax=1.0, dx=0.01, dy=0.01)
+    data = torch.randn(300, 200, generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "a.tif")
+    geotiff.write_geotiff_file(path, tgrid.Raster(data.to(cuda), g))
+    got = geotiff.read_geotiff(path, device="cuda")
+    monkeypatch.setattr(native, "load_native", lambda: None)        # the pure-Python codec
+    want = geotiff.read_geotiff(path, device="cuda")
+    assert got.data.is_cuda and torch.equal(got.data.view(torch.int32), want.data.view(torch.int32))
+    assert torch.equal(got.data.cpu(), data)

@@ -22,7 +22,7 @@ from machisplin_tpu.models import gam as jgam, mars as jmars
 from machisplin_tpu_torch import convert, data as tdata, grid as tgrid
 from machisplin_tpu_torch.ensemble import cv as tcv, weights as tweights
 from machisplin_tpu_torch.models import gam as tgam, mars as tmars
-from machisplin_tpu_torch.parallel import tiles as ttiles
+from machisplin_tpu_torch.parallel import sharded as tsharded
 
 # the ensemble packages re-export the kfold function under the module's name
 jkfold = importlib.import_module("machisplin_tpu.ensemble.kfold")
@@ -61,7 +61,7 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: tgrid.lonlat_rasters(g),
         lambda: g.x_coords(),
         lambda: g.y_coords(),
-        lambda: ttiles.pack_tiles([np.zeros((3, 2))], [np.zeros(3)]),
+        lambda: tsharded.pack_tiles([np.zeros((3, 2))], [np.zeros(3)]),
         lambda: convert.gam_state_from_numpy({"coef": np.zeros(3), "x_mean": np.zeros(2), "x_scale": np.ones(2)}),
         lambda: convert.nn_params_to_flat(np.zeros((2, 3)), np.zeros(3), np.zeros(3), np.zeros(())),
         lambda: convert.nn_state_from_jax({k: np.zeros(2) for k in ("w1", "b1", "w2", "b2", "x_mean", "x_scale")}),
@@ -258,7 +258,8 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.io.overviews, machisplin_tpu_torch.io.writers, machisplin_tpu_torch.io.checkpoint, "
         "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging, "
         "machisplin_tpu_torch.ops.nystrom, machisplin_tpu_torch.ops.host_tps, machisplin_tpu_torch.io.rdata, "
-        "machisplin_tpu_torch.ensemble.weights; "
+        "machisplin_tpu_torch.ensemble.weights, machisplin_tpu_torch.parallel.sharded, "
+        "machisplin_tpu_torch.io.native; "
         "g = machisplin_tpu_torch.synthetic_covariates(48, device='cpu'); print(g.data.shape)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

@@ -21,7 +21,7 @@ from machisplin_tpu.ops.pallas_tps import tps_grid_pallas
 from machisplin_tpu.parallel import sharded as jsharded
 from machisplin_tpu_torch import convert, grid as tgrid
 from machisplin_tpu_torch.ops import feather as tfeather, tps as ttps, tps_grid as ttg
-from machisplin_tpu_torch.parallel import tiles as ttiles
+from machisplin_tpu_torch.parallel import sharded as tsharded
 
 # the pipeline packages re-export the mltps function under the module's name
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")
@@ -218,8 +218,8 @@ def test_batched_tile_solve_matches_jax(sampling):
     parts = [(coords[i::4][: 30 + 7 * i], ys[i::4][: 30 + 7 * i]) for i in range(3)]
     jc, jy, jm = jsharded.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64)
     want = jsharded.batched_tile_solve(jc, jy, jm)
-    tc, ty, tm = ttiles.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64, device="cpu")
-    got = ttiles.batched_tile_solve(tc, ty, tm)
+    tc, ty, tm = tsharded.pack_tiles([p[0] for p in parts], [p[1] for p in parts], pad_to=64, device="cpu")
+    got = tsharded.batched_tile_solve(tc, ty, tm)
     for k in ("lam", "c", "d", "fitted"):
         w = np.asarray(getattr(want, k))
         np.testing.assert_allclose(getattr(got, k).numpy(), w, rtol=1e-6, atol=1e-9 * np.abs(w).max(), err_msg=k)
