@@ -21,3 +21,14 @@ def as_weight(sample_weight, shape, dtype, device) -> torch.Tensor:
     if sample_weight is None:
         return torch.ones(shape, dtype=dtype, device=device)
     return torch.as_tensor(sample_weight, device=device).to(dtype)
+
+
+def chunk_elems(cpu_elems: int, dtype, device, cuda_bytes: int) -> int:
+    """Values a chunked batch computation may hold at once: ``cpu_elems`` on
+    the CPU; on a CUDA device ``cuda_bytes`` of ``dtype`` (and never fewer
+    than ``cpu_elems``).  The chunks, and with them a run's bits, follow
+    these constants, not the card the run is on or what else it holds; each
+    caller's constant states what it leaves for a second rank on the card."""
+    if torch.device(device).type != "cuda":
+        return cpu_elems
+    return max(cpu_elems, cuda_bytes // torch.empty((), dtype=dtype).element_size())

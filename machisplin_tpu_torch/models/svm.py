@@ -34,13 +34,18 @@ import torch
 
 from ..ops.svm_sweep import svm_sweep
 from ..parallel.sharded import gather_rows, share_rows
-from .base import as_weight
+from .base import as_weight, chunk_elems
 
 __all__ = ["SVMState", "fit", "predict", "draw_sigest_pairs", "lane", "sweep_inputs"]
 
 # (lanes x n x n) values of q fitted at once: lane chunks bound the kernel
-# matrices and their temporaries (~0.25 GB a chunk in float32)
+# matrices and their temporaries (~0.25 GB a chunk in float32) on the CPU;
+# on a CUDA device 8 GiB of q (``base.chunk_elems``): config 3's 12 finals'
+# lanes of 10,000 stations in one float32 chunk, and q with the one (L, n, n)
+# temporary of ``_rbf`` at most 16 GiB a rank, 32 GiB for the two ranks a
+# mesh may run on one 80 GB card
 _LANE_ELEMS = 1 << 26
+_LANE_BYTES_CUDA = 8 << 30
 _MU = 1.0            # the augmented-Lagrangian weight
 
 
@@ -63,12 +68,14 @@ def lane(state: SVMState, j: int) -> SVMState:
 def _rbf(a, b, sigma):
     """exp(-sigma |a_i - b_j|^2) for a (L, m, p), b (L, n, p), sigma (L,):
     (L, m, n).  Explicit per-feature differences, accumulated feature by
-    feature (no |a|^2 + |b|^2 - 2ab' expansion)."""
-    r2 = torch.zeros((a.shape[0], a.shape[1], b.shape[1]), dtype=a.dtype, device=a.device)
+    feature (no |a|^2 + |b|^2 - 2ab' expansion), in place: one (L, m, n)
+    temporary beside the result."""
+    r2 = None
     for f in range(a.shape[2]):
         d = a[:, :, f, None] - b[:, None, :, f]
-        r2 = r2 + d * d
-    return torch.exp(-sigma[:, None, None] * r2)
+        d.mul_(d)
+        r2 = d if r2 is None else r2.add_(d)
+    return r2.mul_(-sigma[:, None, None]).exp_()
 
 
 def draw_sigest_pairs(n_lanes: int, n: int, generator: torch.Generator | None = None):
@@ -116,8 +123,9 @@ def sweep_inputs(x, y, w, pairs=None, sigma: float | None = None):
     else:
         sig = torch.full((n_lanes,), float(sigma), dtype=x.dtype, device=x.device)
     q = _rbf(xs, xs, sig)
-    q = q * (w[:, :, None] * w[:, None, :])                # masked rows decouple entirely
-    q = q + torch.diag_embed(1.0 - w)
+    for j in range(n_lanes):                               # masked rows decouple entirely
+        q[j].mul_(w[j, :, None] * w[j, None, :])
+    torch.diagonal(q, dim1=1, dim2=2).add_(1.0 - w)
     diag = torch.diagonal(q, dim1=1, dim2=2) + _MU * w     # A_ii of A = K + mu 11' (active rows)
     state = SVMState(sv_x=xs, theta=None, bias=None, sigma=sig, x_mean=x_mean, x_scale=x_scale,
                      y_mean=y_mean, y_scale=y_scale)
@@ -167,7 +175,7 @@ def fit(x, y, *, sample_weight=None, c_reg: float = 1.0, epsilon: float = 0.1, s
         if pairs is None:
             pairs = draw_sigest_pairs(n_lanes, n, generator)
         pairs = tuple(torch.as_tensor(a, device=x.device).long().reshape(n_lanes, -1) for a in pairs)
-    chunk = max(1, _LANE_ELEMS // (n * n))
+    chunk = max(1, chunk_elems(_LANE_ELEMS, x.dtype, x.device, _LANE_BYTES_CUDA) // (n * n))
     parts = [
         _fit_lanes(xl[s : s + chunk], y[s : s + chunk], w[s : s + chunk],
                    None if sigma is not None else tuple(a[s : s + chunk] for a in pairs),
@@ -180,20 +188,28 @@ def fit(x, y, *, sample_weight=None, c_reg: float = 1.0, epsilon: float = 0.1, s
 
 def predict(state: SVMState, x, query_block: int = 0) -> torch.Tensor:
     """SVR decision function of every lane at the (m, p) points ``x``:
-    (L, m), or (m,) for a single model.  Queries go in blocks of
-    ``query_block`` rows (default max(128, 16e6 // n_sv)), so at most
-    (L, query_block, n_sv) kernel values exist at once."""
+    (L, m), or (m,) for a single model, summed over the support vectors
+    only.  Queries go in blocks of ``query_block`` rows (default max(128,
+    16e6 // n_sv), n_sv the lanes' largest support-vector count), so at
+    most (L, query_block, n_sv) kernel values exist at once."""
     single = state.theta.dim() == 1
     st = SVMState(*(a[None] for a in state)) if single else state
     x = torch.as_tensor(x, device=st.theta.device).to(st.theta.dtype)
-    n_sv = st.theta.shape[1]
+    # only the support vectors (theta != 0; the sweep's soft threshold leaves
+    # the rest at exactly 0), each lane's first in row order, padded with
+    # theta = 0 to the lanes' largest count
+    nz = st.theta != 0
+    n_sv = max(int(nz.sum(1).max()), 1)
+    keep = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)[:, :n_sv]
+    theta = st.theta.gather(1, keep)
+    sv_x = st.sv_x.gather(1, keep[:, :, None].expand(-1, -1, st.sv_x.shape[2]))
     xs = (x[None] - st.x_mean[:, None, :]) / st.x_scale[:, None, :]      # (L, m, p)
     if query_block <= 0:
         query_block = max(128, int(16e6) // max(n_sv, 1))
     m = x.shape[0]
     out = torch.empty((st.theta.shape[0], m), dtype=x.dtype, device=x.device)
     for c0 in range(0, m, query_block):
-        k = _rbf(xs[:, c0 : c0 + query_block], st.sv_x, st.sigma)
-        f = (k @ st.theta[:, :, None])[:, :, 0] + st.bias[:, None]
+        k = _rbf(xs[:, c0 : c0 + query_block], sv_x, st.sigma)
+        f = (k @ theta[:, :, None])[:, :, 0] + st.bias[:, None]
         out[:, c0 : c0 + query_block] = f * st.y_scale[:, None] + st.y_mean[:, None]
     return out[0] if single else out

@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from .base import chunk_elems
+
 __all__ = [
     "Tree", "make_bins", "make_bins_masked", "bin_data", "flat_bin_onehot", "flat_bin_cum_onehot", "edges_lookup",
     "grow_bestfirst_trees_cumshared", "grow_bestfirst_trees_shared", "assigned_predict_batched", "route_bins",
@@ -343,10 +345,13 @@ def grow_bestfirst_trees_cumshared(xb, ys, ws, *, n_splits: int, min_leaf: float
 
 
 # (trees x 2 n_nodes x rows) weighted node one-hot values contracted at once
-# by grow_level_trees: bounds the deep levels' tables (~0.5 GB in float32).
-# Each chunk is a few dozen launches from the host, so the bound is what
-# keeps the grower's launch count near one chunk a forest a level
+# by grow_level_trees: bounds the deep levels' tables (~0.5 GB in float32)
+# on the CPU; on a CUDA device 2.5 GiB of them (``base.chunk_elems``: a
+# chunk's tables and temporaries then take about 8 GiB a rank).  Each chunk
+# is a few dozen launches from the host, so the bound is what keeps the
+# grower's launch count near one chunk a forest a level
 _LEVEL_ELEMS = 1 << 27
+_LEVEL_BYTES_CUDA = 5 << 29
 
 
 def draw_mtry_scores(n_trees: int, max_depth: int, p: int, generator: torch.Generator | None = None):
@@ -408,11 +413,12 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
     var_gain = torch.zeros((n_trees, p), dtype=dtype, device=dev)
     cur = torch.zeros((n_trees, n), dtype=torch.int64, device=dev)
     block = block or n_trees
+    elems = chunk_elems(_LEVEL_ELEMS, dtype, dev, _LEVEL_BYTES_CUDA)
 
     for level in range(max_depth):
         offset, n_nodes = 2**level - 1, 2**level
         nodes = torch.arange(n_nodes, device=dev)
-        for t0, t1 in _tree_chunks(n_trees, max(1, _LEVEL_ELEMS // (2 * n_nodes * n)), block):
+        for t0, t1 in _tree_chunks(n_trees, max(1, elems // (2 * n_nodes * n)), block):
             tc = t1 - t0
             local = cur[t0:t1] - offset                              # valid iff in [0, n_nodes)
             node1h = (local[:, None, :] == nodes[None, :, None]).to(dtype)           # (tc, N, n)
@@ -445,7 +451,7 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
     # order (and to last bits) that changes from run to run
     sums = torch.empty((n_trees, 2, n_total), dtype=dtype, device=dev)
     node_iota = torch.arange(n_total, device=dev)
-    for t0, t1 in _tree_chunks(n_trees, max(1, _LEVEL_ELEMS // (n * n_total)), block):
+    for t0, t1 in _tree_chunks(n_trees, max(1, elems // (n * n_total)), block):
         sums[t0:t1] = torch.stack([ws[t0:t1], wys[t0:t1]], 1) @ (cur[t0:t1, :, None] == node_iota).to(dtype)
     sw, swy = sums[:, 0], sums[:, 1]
     value = swy / sw.clamp_min(1e-12)

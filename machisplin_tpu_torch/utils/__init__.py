@@ -1,7 +1,7 @@
 from .precision import highest_precision
-from .timing import PhaseTimer
+from .timing import PhaseTimer, trace
 
-__all__ = ["PhaseTimer", "highest_precision", "resolve_device"]
+__all__ = ["PhaseTimer", "highest_precision", "resolve_device", "trace"]
 
 
 def resolve_device(device):

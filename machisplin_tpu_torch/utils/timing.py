@@ -1,15 +1,18 @@
-"""Structured per-phase timing (the counterpart of machisplin_tpu.utils.timing).
+"""Structured per-phase timing and a profiler trace (the counterpart of
+machisplin_tpu.utils.timing).
 
 Phases are host wall-clock spans.  Work on a CUDA device is asynchronous, so
 a phase that launches device work synchronises the device before it closes;
-otherwise the span would measure only the launches."""
+otherwise the span would measure only the launches.  ``trace(log_dir)``
+records a ``torch.profiler`` trace of its block into ``log_dir``."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
-__all__ = ["PhaseTimer"]
+__all__ = ["PhaseTimer", "trace"]
 
 
 @dataclass
@@ -44,3 +47,28 @@ class PhaseTimer:
 
     def as_dict(self) -> dict:
         return dict(self.phases)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """``torch.profiler`` trace of the block when a ``log_dir`` is given
+    (host activity, and the card's where a CUDA device is present), written
+    into ``log_dir`` as a Chrome trace (``trace_<pid>_<ns>.json``, readable
+    in chrome://tracing or Perfetto); a no-op for None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

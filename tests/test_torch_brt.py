@@ -29,6 +29,7 @@ from machisplin_tpu_torch.models import brt as tbrt, gbm_step as tgbm, trees as 
 from machisplin_tpu_torch.ops import forest as tforest, tree_grow as ttg
 from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig as TConfig
 from test_torch_forest_tables import outcome_mirror
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 NB = 16
 

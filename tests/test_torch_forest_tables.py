@@ -19,6 +19,7 @@ import torch
 
 from machisplin_tpu_torch.models import trees as ttrees
 from machisplin_tpu_torch.ops import forest as tforest
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 TOL = 1e-5  # of sum |w v| per response
 

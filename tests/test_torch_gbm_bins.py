@@ -25,6 +25,7 @@ from machisplin_tpu_torch.models import gbm_step as tgbm, trees as ttrees
 from machisplin_tpu_torch.ops import tree_grow as ttg
 from test_torch_brt import GBM as GBM_BRT, NB, _data, _final_bags, _outer_bags
 from test_torch_io import one_torch_thread  # noqa: F401  (autouse: one torch thread here too)
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 
 BRANCHES = {"shared": True, "per_fold": False}

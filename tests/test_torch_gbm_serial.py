@@ -24,6 +24,7 @@ from machisplin_tpu_torch import convert
 from machisplin_tpu_torch.models import brt as tbrt, deviance as tdev, families as tfam, gbm_step as tgbm
 from machisplin_tpu_torch.models import trees as ttrees
 from machisplin_tpu_torch.ops import tree_grow as ttg
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 NB = 16
 FAMILIES = ["gaussian", "laplace", "poisson", "bernoulli"]

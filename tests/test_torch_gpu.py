@@ -16,10 +16,12 @@ import torch
 
 from machisplin_tpu_torch import grid as tgrid
 from machisplin_tpu_torch.models import nn as tnn, rf as trf, svm as tsvm, trees as ttrees
+from machisplin_tpu_torch.models.base import chunk_elems
 from machisplin_tpu_torch.ops import (
     forest as ttforest, svm_sweep as ttsvm, tps as ttps, tps_grid as ttg, tree_grow as ttgrow,
 )
 from test_torch_forest_tables import random_forest
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 pytestmark = pytest.mark.gpu
 
@@ -384,7 +386,8 @@ def _k3_forest(kind, cuda):
     return random_forest(rng, list(rng.integers(1, 6, 200)), p=10, n_edges=60)[0], 10, 5
 
 
-@pytest.mark.parametrize("kind,n_cols", [("k2", None), ("k2", 2), ("k2", 5), ("deep", 2), ("wide", None)])
+# n_cols 9: the 9 responses of a config-3-shaped run, 3 launches of 4 columns
+@pytest.mark.parametrize("kind,n_cols", [("k2", None), ("k2", 2), ("k2", 5), ("k2", 9), ("deep", 2), ("wide", None)])
 def test_k3_matches_plain(cuda, kind, n_cols):
     """Exact leaf membership counts, weighted sums to 1e-5 of sum |w v|,
     with every tree tabled, trees above S_MAX in the slot loop of the same
@@ -731,3 +734,62 @@ def test_native_decoder_reads_onto_the_card(cuda, tmp_path, monkeypatch):
     want = geotiff.read_geotiff(path, device="cuda")
     assert got.data.is_cuda and torch.equal(got.data.view(torch.int32), want.data.view(torch.int32))
     assert torch.equal(got.data.cpu(), data)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
+def test_svm_lanes_at_the_card_bound_equal_one_lane_fits(cuda, dtype, tol):
+    """``svm.fit`` bounds a chunk of lanes by its CUDA constant
+    (``base.chunk_elems``): 8 lanes of 3,000 stations, 2 chunks under the
+    CPU's bound, sweep in one K4 launch, and each lane equals its own
+    one-lane fit (theta and bias within the K4 tolerance of C, predictions
+    within what those differences allow; the lanes' operands are computed
+    at another batch width)."""
+    gen = torch.Generator().manual_seed(0)
+    n, p, lanes = 3000, 3, 8
+    assert tsvm._LANE_ELEMS // (n * n) < lanes <= chunk_elems(tsvm._LANE_ELEMS, dtype, cuda, tsvm._LANE_BYTES_CUDA) // (n * n)
+    x = torch.rand((n, p), generator=gen, dtype=torch.float64)
+    y = torch.sin(4 * x[:, 0])[None] + x[:, 1] * x[:, 2] + 0.1 * torch.randn((lanes, n), generator=gen,
+                                                                                dtype=torch.float64)
+    w = (torch.rand((lanes, n), generator=gen) > 0.1).double()
+    pairs = tsvm.draw_sigest_pairs(lanes, n, gen)
+    x, y, w = (a.to(cuda, dtype) for a in (x, y, w))
+    before = ttsvm.LAUNCHES["svm_sweep"]
+    whole = tsvm.fit(x, y, sample_weight=w, pairs=pairs, epochs=40)
+    assert ttsvm.LAUNCHES["svm_sweep"] - before == 1
+    q = x[:500]
+    pw = tsvm.predict(whole, q)
+    for j in range(lanes):
+        one = tsvm.fit(x, y[j], sample_weight=w[j], pairs=tuple(a[j] for a in pairs), epochs=40)
+        assert float((whole.theta[j] - one.theta).abs().max()) <= tol
+        assert abs(float(whole.bias[j] - one.bias)) <= tol
+        # |K| <= 1, so a prediction moves by at most sum |d theta| + |d bias| (scaled)
+        moved = float((whole.theta[j] - one.theta).abs().sum() + (whole.bias[j] - one.bias).abs())
+        assert float((pw[j] - tsvm.predict(one, q)).abs().max()) <= (moved + tol) * float(one.y_scale)
+
+
+def test_rf_chunks_at_the_card_bound_grow_the_forests_of_the_cpu_bound(cuda, monkeypatch):
+    """``trees.grow_level_trees`` chunks its trees by its CUDA constant
+    (``base.chunk_elems``): 2 forests of 500 trees on 3,000 rows grown
+    with it and with the CPU's bound.  The histograms are summed in other
+    matrix shapes, so a tree may part at a near-tie: at least 99 % of the
+    trees route every row alike, and the training predictions agree within
+    1e-3 of the response range."""
+    gen = torch.Generator().manual_seed(1)
+    n, p, lanes, ntree = 3000, 3, 2, 500
+    x = torch.rand((n, p), generator=gen).to(cuda)
+    y = (torch.sin(4 * x[:, 0]) + x[:, 1] * x[:, 2])[None] + 0.1 * torch.randn((lanes, n), generator=gen).to(cuda)
+    w = (torch.rand((lanes, n), generator=gen) > 0.9).float().to(cuda)       # an inverted CV's one fold
+    counts, scores = trf.draw(w, p, ntree=ntree, generator=gen)
+    assert chunk_elems(ttrees._LEVEL_ELEMS, torch.float32, cuda, ttrees._LEVEL_BYTES_CUDA) > ttrees._LEVEL_ELEMS
+
+    def grow():
+        return trf.fit(x, y, sample_weight=w, boot_counts=counts, scores=scores, ntree=ntree)
+
+    card = grow()
+    monkeypatch.setattr(ttrees, "chunk_elems", lambda cpu_elems, dtype, device, cuda_bytes: cpu_elems)
+    cpu_bound = grow()
+    leaves = lambda st: ttrees.tree_assign(ttrees.Tree(*(a.reshape((-1,) + a.shape[2:]) for a in st.trees)), x, 9)
+    same = (leaves(card) == leaves(cpu_bound)).all(1).float().mean()
+    assert float(same) >= 0.99
+    span = float(y.max() - y.min())
+    assert float((card.train_pred - cpu_bound.train_pred).abs().max()) <= 1e-3 * span

@@ -25,6 +25,7 @@ from machisplin_tpu.pipeline.mltps import LayerResult as JLayer
 from machisplin_tpu_torch.io import checkpoint as tck, overviews as tovr
 from machisplin_tpu_torch.pipeline.mltps import LayerResult as TLayer
 from machisplin_tpu_torch.utils.logging import banner, run_log
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 
 @pytest.fixture(autouse=True, scope="module")

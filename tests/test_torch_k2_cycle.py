@@ -14,6 +14,7 @@ import torch
 
 from machisplin_tpu_torch.models import gbm_step as tgbm, trees as ttrees
 from machisplin_tpu_torch.ops import tree_grow as ttg
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 NB = 16
 

@@ -36,6 +36,7 @@ from machisplin_tpu.parallel import batched_tile_tps as jbatched_tile_tps, make_
 from machisplin_tpu.parallel import pack_tiles as jpack_tiles
 from machisplin_tpu.pipeline import mltps as jmltps_mod
 from machisplin_tpu_torch.ensemble.cv import run_cv
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 jkfold = importlib.import_module("machisplin_tpu.ensemble.kfold")
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")

@@ -17,6 +17,7 @@ import machisplin_tpu_torch as mtt
 from machisplin_tpu.ensemble.kfold import kfold as jax_kfold
 from machisplin_tpu.pipeline.mltps import MLTPSConfig as JConfig
 from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig as TConfig
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 
 @pytest.fixture(scope="module")

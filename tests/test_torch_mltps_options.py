@@ -29,6 +29,7 @@ from machisplin_tpu_torch.ensemble.kfold import numpy_folds
 from machisplin_tpu_torch.grid import GridSpec, Raster
 from machisplin_tpu_torch.ops import nystrom as tnys, tps as ttps
 from machisplin_tpu_torch.utils.timing import PhaseTimer
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 # the pipeline packages re-export the mltps function under the module's name
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")

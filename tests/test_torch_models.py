@@ -23,6 +23,7 @@ from machisplin_tpu_torch import convert, data as tdata, grid as tgrid
 from machisplin_tpu_torch.ensemble import cv as tcv, weights as tweights
 from machisplin_tpu_torch.models import gam as tgam, mars as tmars
 from machisplin_tpu_torch.parallel import sharded as tsharded
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 # the ensemble packages re-export the kfold function under the module's name
 jkfold = importlib.import_module("machisplin_tpu.ensemble.kfold")
@@ -256,7 +257,7 @@ def test_port_imports_with_jax_blocked():
         "machisplin_tpu_torch.pipeline.importance, machisplin_tpu_torch.models.families, "
         "machisplin_tpu_torch.models.deviance, machisplin_tpu_torch.io.geotiff, "
         "machisplin_tpu_torch.io.overviews, machisplin_tpu_torch.io.writers, machisplin_tpu_torch.io.checkpoint, "
-        "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging, "
+        "machisplin_tpu_torch.pipeline.tiles, machisplin_tpu_torch.utils.logging, machisplin_tpu_torch.utils.timing, "
         "machisplin_tpu_torch.ops.nystrom, machisplin_tpu_torch.ops.host_tps, machisplin_tpu_torch.io.rdata, "
         "machisplin_tpu_torch.ensemble.weights, machisplin_tpu_torch.parallel.sharded, "
         "machisplin_tpu_torch.io.native; "

@@ -17,6 +17,7 @@ from machisplin_tpu_torch.models import trees as ttrees
 from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig, _tps_tiles
 
 from test_torch_forest_tables import random_forest
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 
 def lzw_encode(data: bytes) -> bytes:

@@ -25,6 +25,7 @@ from machisplin_tpu_torch.ensemble import cv as tcv
 from machisplin_tpu_torch.ensemble.kfold import numpy_folds
 from machisplin_tpu_torch.models import nn as tnn
 from machisplin_tpu_torch.optim import lbfgs
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")
 tmltps = importlib.import_module("machisplin_tpu_torch.pipeline.mltps")

@@ -31,6 +31,7 @@ from machisplin_tpu_torch.ensemble.kfold import numpy_folds
 from machisplin_tpu_torch.grid import GridSpec, Raster
 from machisplin_tpu_torch.models import rf as trf, trees as ttrees
 from machisplin_tpu_torch.utils.timing import PhaseTimer
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 tmltps = importlib.import_module("machisplin_tpu_torch.pipeline.mltps")
 

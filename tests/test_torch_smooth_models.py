@@ -19,6 +19,7 @@ from machisplin_tpu.models import gam as jgam, mars as jmars
 from machisplin_tpu_torch import convert, data as tdata, grid as tgrid
 from machisplin_tpu_torch.ensemble import cv as tcv
 from machisplin_tpu_torch.models import gam as tgam, mars as tmars
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 # the ensemble package re-exports the kfold function under the module's name
 jkfold = importlib.import_module("machisplin_tpu.ensemble.kfold")

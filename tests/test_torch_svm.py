@@ -23,6 +23,7 @@ from machisplin_tpu_torch.ensemble import cv as tcv
 from machisplin_tpu_torch.models import svm as tsvm
 from machisplin_tpu_torch.ops import svm_sweep
 from machisplin_tpu_torch.pipeline.importance import breakdown_importance as tbreakdown
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")
 tmltps = importlib.import_module("machisplin_tpu_torch.pipeline.mltps")

@@ -23,6 +23,7 @@ import torch
 
 from machisplin_tpu_torch.models import svm as tsvm
 from machisplin_tpu_torch.ops import svm_sweep
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 CH = 32            # coordinates a chunk: the chain warp's lanes
 UPD = 15           # updater warps (K4_THREADS = 512)

@@ -25,6 +25,7 @@ from machisplin_tpu_torch.ensemble.kfold import numpy_folds
 from machisplin_tpu_torch.io import checkpoint as tck
 from machisplin_tpu_torch.pipeline.mltps import MLTPSConfig
 from test_torch_io import one_torch_thread  # noqa: F401  (autouse: one torch thread here too)
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 
 G = dict(nrows=24, ncols=30, xmin=-77.0, ymax=-6.0, dx=0.05, dy=0.05)

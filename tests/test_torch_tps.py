@@ -22,6 +22,7 @@ from machisplin_tpu.parallel import sharded as jsharded
 from machisplin_tpu_torch import convert, grid as tgrid
 from machisplin_tpu_torch.ops import feather as tfeather, tps as ttps, tps_grid as ttg
 from machisplin_tpu_torch.parallel import sharded as tsharded
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 # the pipeline packages re-export the mltps function under the module's name
 jmltps = importlib.import_module("machisplin_tpu.pipeline.mltps")

@@ -18,6 +18,7 @@ from machisplin_tpu.io import rdata as jrdata
 from machisplin_tpu_torch import data as tdata
 from machisplin_tpu_torch.ensemble import weights as tweights
 from machisplin_tpu_torch.io import rdata as trdata
+from torch_cpu import torch_threads  # noqa: F401  (autouse: two torch threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import time
 
 import numpy as np
 import torch
@@ -267,9 +268,24 @@ def mltps_gm(mesh, extra):
     return layer_arrays(run_mltps(mesh, letters_pool="gm"))
 
 
+# seconds a world of ranks (or the unsharded process) may take before
+# ``ranks_done`` terminates it and fails with its output
+JOIN_LIMIT = 600.0
+
+
+def _log_to(path: str):
+    """Send this process's stdout and stderr to ``path``, so that a rank's
+    output can be shown when it has to be stopped."""
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+
+
 def _worker(rank, world, store, names, extra):
     import torch.distributed as dist
 
+    _log_to(os.path.join(extra["out_dir"], f"rank{rank}.log"))
     torch.set_num_threads(_THREADS)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=240))
@@ -294,14 +310,35 @@ def start_ranks(world: int, names, tmp, **extra):
     return ctx, str(tmp), world
 
 
+def _join(ctx, logs, limit: float = JOIN_LIMIT):
+    """Wait for every process of ``ctx``; past ``limit`` seconds terminate
+    them all and raise with the tail of each one's log."""
+    deadline = time.monotonic() + limit
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() < deadline:
+            continue
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+        tails = []
+        for path in logs:
+            text = open(path, errors="replace").read() if os.path.exists(path) else "(no log)"
+            tails.append(f"--- {os.path.basename(path)} ---\n{text[-4000:]}")
+        raise TimeoutError(f"processes still running after {limit:.0f} s, terminated\n" + "\n".join(tails))
+
+
 def ranks_done(started) -> list[dict]:
     ctx, tmp, world = started
-    while not ctx.join():
-        pass
+    _join(ctx, [os.path.join(tmp, f"rank{r}.log") for r in range(world)])
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
 
 
 def _unsharded_worker(_, names, extra):
+    _log_to(os.path.join(extra["save_dir"], "unsharded.log"))
     torch.set_num_threads(_THREADS)
     out = {name: CASES[name](None, extra) for name in names}
     torch.save(out, os.path.join(extra["save_dir"], "unsharded.pt"))
@@ -320,6 +357,5 @@ def start_unsharded(names, tmp, **extra):
 
 def unsharded_done(started) -> dict:
     ctx, tmp = started
-    while not ctx.join():
-        pass
+    _join(ctx, [os.path.join(tmp, "unsharded.log")])
     return torch.load(os.path.join(tmp, "unsharded.pt"), weights_only=False)
