@@ -49,6 +49,17 @@
 // 50 MB L2, so part of it comes from HBM each sweep.  Sums run in another
 // order than the plain version's, so the two agree to a tolerance, not bit
 // for bit.
+//
+// Where theta lives (the template's GLOBAL_THETA): in shared memory beside
+// the stages and the row buffers while n fits (ops/svm_sweep.py's max_rows:
+// 21,152 rows in float32, 8,000 in float64); above that in the lane's own
+// slice of theta_out, theta_out + lane * n, in device memory (L2-resident:
+// 96 KB at 24,576 float32 rows).  Only the address changes: the nonzero masks
+// stay in shared memory (4 B per 32 rows), and every step and sum is the
+// same, so the two layouts give the same theta and lam bit for bit.  The
+// chain warp writes theta and the updaters read it after the barrier, so it
+// is read through plain coherent loads only: no __ldg, no const __restrict__
+// alias (a non-coherent LDG would hand the updaters a stale theta).
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,13 +109,14 @@ __device__ __forceinline__ unsigned smem_addr(const T* p) {
 
 // Updater warp u stages chunk `cn` into `st`: its two blocks, its constants and
 // the partial sums over its chunks of rows except chunk `cex`, the one the
-// chain warp runs now.  Rows of theta = 0 are left out by the chunks' nonzero
-// masks `nz`, so a row costs a bit test.  The rows come by cp.async into the
-// warp's buffer `buf` (ROWS rows of 32 columns), a batch at a time, each lane
-// its own column: at the CV shape one batch covers a warp's rows in float32.
+// chain warp runs now; `th` is the lane's theta, in either layout.  Rows of
+// theta = 0 are left out by the chunks' nonzero masks `nz`, so a row costs a
+// bit test.  The rows come by cp.async into the warp's buffer `buf` (ROWS rows
+// of 32 columns), a batch at a time, each lane its own column: at the CV shape
+// one batch covers a warp's rows in float32.
 template <typename T>
 __device__ void stage_chunk(Stage<T>& st, T* buf, const T* __restrict__ ql, const T* __restrict__ yl,
-                            const T* __restrict__ wl, const T* __restrict__ dl, const T* s_theta,
+                            const T* __restrict__ wl, const T* __restrict__ dl, const T* th,
                             const unsigned* nz, int n, int chunks, int cn, int cex, int u, int lane, T c_reg, T eps,
                             T mu) {
   constexpr int ROWS = ROW_BYTES / sizeof(T) / CH;
@@ -143,7 +155,7 @@ __device__ void stage_chunk(Stage<T>& st, T* buf, const T* __restrict__ ql, cons
     cp_async_wait_all();                            // this lane's copies (rows, blocks, constants) have landed
 #pragma unroll
     for (int m = 0; m < ROWS; ++m)
-      if ((bits[m / CH] >> (m % CH)) & 1u) acc = fma(buf[m * CH + lane], s_theta[gb * CH + m], acc);
+      if ((bits[m / CH] >> (m % CH)) & 1u) acc = fma(buf[m * CH + lane], th[gb * CH + m], acc);
   }
   cp_async_wait_all();                              // a warp with no rows: its blocks and constants
   st.part[u][lane] = acc;
@@ -176,26 +188,30 @@ __device__ __forceinline__ long long clock_after(float dep) {
 #define K4_CLOCK(t, dep)
 #endif
 
-template <typename T>
+// theta_out carries no __restrict__: with GLOBAL_THETA it is read back
+// after other threads wrote it, so no load of it may be non-coherent.
+template <typename T, bool GLOBAL_THETA>
 __global__ void __launch_bounds__(THREADS, 1)
 svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __restrict__ w,
-                 const T* __restrict__ diag, T* __restrict__ theta_out, T* __restrict__ lam_out,
+                 const T* __restrict__ diag, T* theta_out, T* __restrict__ lam_out,
                  int n, int epochs, T c_reg, T eps, T mu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stage<T>* stage = reinterpret_cast<Stage<T>*>(smem_raw);
   const int chunks = (n + CH - 1) / CH;
   T* rowbuf = reinterpret_cast<T*>(stage + 2);                // UPD buffers of ROW_BYTES
-  T* s_theta = rowbuf + UPD * ROW_BYTES / sizeof(T);          // whole chunks
-  unsigned* nz = reinterpret_cast<unsigned*>(s_theta + chunks * CH);   // chunk c's bit l: theta_{32 c + l} != 0
+  T* after = rowbuf + UPD * ROW_BYTES / sizeof(T);
+  const size_t ln = blockIdx.x;
+  // the lane's theta: whole chunks in shared memory, or its slice of theta_out
+  T* theta_l = GLOBAL_THETA ? theta_out + ln * n : after;
+  unsigned* nz = reinterpret_cast<unsigned*>(GLOBAL_THETA ? after : after + chunks * CH);   // chunk c's bit l: theta_{32 c + l} != 0
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t ln = blockIdx.x;
   const T* ql = q + ln * n * n;
   const T* yl = ys + ln * n;
   const T* wl = w + ln * n;
   const T* dl = diag + ln * n;
   const int phases = epochs * chunks;
-  for (int j = tid; j < n; j += THREADS) s_theta[j] = T(0);
+  for (int j = tid; j < n; j += THREADS) theta_l[j] = T(0);
   for (int j = tid; j < chunks; j += THREADS) nz[j] = 0u;
   __syncthreads();
 
@@ -216,7 +232,7 @@ svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __r
       for (int u = 1; u < UPD; ++u) g += st.part[u][lane];
       g += b;                                         // the previous chunk's rows, theta as updated
       b = T(0);
-      const T th0 = lane < m ? s_theta[i0 + lane] : T(0);
+      const T th0 = lane < m ? theta_l[i0 + lane] : T(0);
       T thn = th0;
       T gk = __shfl_sync(FULL, g, 0);                 // this step's g
       T pre = __shfl_sync(FULL, g, 1);                // the next coordinate's g before this step's change
@@ -242,7 +258,7 @@ svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __r
         co = con;
         thk = thkn;
       }
-      if (lane < m) s_theta[i0 + lane] = thn;
+      if (lane < m) theta_l[i0 + lane] = thn;
       const unsigned nzm = __ballot_sync(FULL, lane < m && thn != T(0));
       if (lane == 0) nz[c] = nzm;
       if (++c == chunks) {
@@ -264,7 +280,7 @@ svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __r
   } else {
     const int u = warp - 1;
     T* buf = rowbuf + u * ROW_BYTES / sizeof(T);
-    stage_chunk(stage[0], buf, ql, yl, wl, dl, s_theta, nz, n, chunks, 0, -1, u, lane, c_reg, eps, mu);
+    stage_chunk(stage[0], buf, ql, yl, wl, dl, theta_l, nz, n, chunks, 0, -1, u, lane, c_reg, eps, mu);
     role_sync();
     int c = 0;
     for (int ph = 0; ph < phases; ++ph) {
@@ -272,7 +288,7 @@ svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __r
       const int cn = c + 1 == chunks ? 0 : c + 1;
 #ifndef K4_PROBE_IDLE_UPDATERS                        // a probe: the chain's time alone (results wrong)
       if (ph + 1 < phases) {
-        stage_chunk(stage[(ph + 1) & 1], buf, ql, yl, wl, dl, s_theta, nz, n, chunks, cn, c, u, lane, c_reg, eps,
+        stage_chunk(stage[(ph + 1) & 1], buf, ql, yl, wl, dl, theta_l, nz, n, chunks, cn, c, u, lane, c_reg, eps,
                     mu);
       }
 #endif
@@ -284,45 +300,60 @@ svm_sweep_kernel(const T* __restrict__ q, const T* __restrict__ ys, const T* __r
       role_sync();
     }
   }
-  __syncthreads();
-  for (int j = tid; j < n; j += THREADS) theta_out[ln * n + j] = s_theta[j];
+  if (!GLOBAL_THETA) {
+    __syncthreads();
+    for (int j = tid; j < n; j += THREADS) theta_out[ln * n + j] = theta_l[j];
+  }
 }
 
-template <typename T>
+// the layout's shared memory: two stages, the row buffers, and a mask word
+// (with GLOBAL_THETA = false also theta's 32 values) per chunk of 32 rows
+template <typename T, bool GLOBAL_THETA>
 size_t smem_bytes(int n) {
-  return 2 * sizeof(Stage<T>) + (size_t)UPD * ROW_BYTES + (CH * sizeof(T) + sizeof(unsigned)) * ((n + CH - 1) / CH);
+  return 2 * sizeof(Stage<T>) + (size_t)UPD * ROW_BYTES +
+         ((GLOBAL_THETA ? 0 : CH * sizeof(T)) + sizeof(unsigned)) * ((n + CH - 1) / CH);
 }
 
-template <typename T>
+template <typename T, bool GLOBAL_THETA>
 cudaError_t launch(const void* q, const void* ys, const void* w, const void* diag, void* theta, void* lam,
                    int lanes, int n, int epochs, double c_reg, double eps, double mu, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>(n);
+  const size_t smem = smem_bytes<T, GLOBAL_THETA>(n);
   if (smem > SMEM_LIMIT || (long long)epochs * ((n + CH - 1) / CH) > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(svm_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(svm_sweep_kernel<T, GLOBAL_THETA>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  svm_sweep_kernel<T><<<lanes, THREADS, smem, s>>>(
+  svm_sweep_kernel<T, GLOBAL_THETA><<<lanes, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(ys), static_cast<const T*>(w), static_cast<const T*>(diag),
       static_cast<T*>(theta), static_cast<T*>(lam), n, epochs, T(c_reg), T(eps), T(mu));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_layout(const void* q, const void* ys, const void* w, const void* diag, void* theta, void* lam,
+                          int lanes, int n, int epochs, double c_reg, double eps, double mu, int global_theta,
+                          cudaStream_t s) {
+  return global_theta ? launch<T, true>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, s)
+                      : launch<T, false>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, s);
 }
 
 }  // namespace
 
 // q (lanes, n, n) symmetric, ys, w, diag (lanes, n), theta (lanes, n), lam
 // (lanes): all float32 (is_double = 0) or all float64 (is_double = 1),
-// contiguous, on the device of `stream`.  n >= 1 with 32 values and a word
-// per chunk of 32 rows beside two stages and the row buffers within a
-// block's shared memory; epochs >= 0.  Returns the launch's cudaError_t.
+// contiguous, on the device of `stream`.  global_theta = 0 keeps each lane's
+// theta in shared memory (n within 32 values and a word per chunk of 32 rows
+// beside two stages and the row buffers), 1 in theta itself (n within a word
+// per chunk); epochs >= 0.  Returns the launch's cudaError_t.
 extern "C" int svm_sweep_launch(const void* q, const void* ys, const void* w, const void* diag, void* theta,
                                 void* lam, int lanes, int n, int epochs, double c_reg, double eps, double mu,
-                                int is_double, void* stream) {
+                                int is_double, int global_theta, void* stream) {
   if (lanes <= 0 || n <= 0 || epochs < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? (int)launch<double>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, s)
-                   : (int)launch<float>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, s);
+  return is_double
+             ? (int)launch_layout<double>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, global_theta, s)
+             : (int)launch_layout<float>(q, ys, w, diag, theta, lam, lanes, n, epochs, c_reg, eps, mu, global_theta, s);
 }
 
 #ifdef K4_PROBE

@@ -1,7 +1,7 @@
 """Model zoo: the six letters of the reference (``b`` BRT via gbm.step,
 ``g`` GAM, ``n`` NN, ``m`` MARS, ``r`` RF, ``v`` SVM)."""
-from . import brt, gam, gbm_step, mars, nn, rf, svm, trees
+from . import base, brt, deviance, gam, gbm_step, mars, nn, rf, svm, trees
 from .base import ALGORITHM_LETTERS, LETTER_ORDER, LETTER_TO_NAME
 
-__all__ = ["ALGORITHM_LETTERS", "LETTER_ORDER", "LETTER_TO_NAME", "brt", "gam", "gbm_step", "mars", "nn", "rf",
-           "svm", "trees"]
+__all__ = ["ALGORITHM_LETTERS", "LETTER_ORDER", "LETTER_TO_NAME", "base", "brt", "deviance", "gam", "gbm_step",
+           "mars", "nn", "rf", "svm", "trees"]

@@ -34,7 +34,8 @@ from .base import chunk_elems
 __all__ = [
     "Tree", "make_bins", "make_bins_masked", "bin_data", "flat_bin_onehot", "flat_bin_cum_onehot", "edges_lookup",
     "grow_bestfirst_trees_cumshared", "grow_bestfirst_trees_shared", "assigned_predict_batched", "route_bins",
-    "grow_level_trees", "draw_mtry_scores", "assigned_predict", "tree_assign", "forest_predict",
+    "grow_level_trees", "grow_level_tree", "draw_mtry_scores", "assigned_predict", "tree_assign", "tree_predict",
+    "forest_predict",
 ]
 
 
@@ -461,6 +462,19 @@ def grow_level_trees(xb, edges, ys, ws, *, max_depth: int = 9, min_leaf: float =
     return tree, cur
 
 
+def grow_level_tree(xb, edges, y, w, *, max_depth: int = 8, min_leaf: float = 5.0, mtry: int | None = None,
+                    scores=None, generator: torch.Generator | None = None, bin_cum1h=None,
+                    return_assign: bool = False):
+    """One tree of ``grow_level_trees`` for (n,) ``y`` and ``w`` (``scores``
+    (2^max_depth - 1, p) in place of the JAX package's key): a Tree of (N,)
+    arrays, and with ``return_assign`` the training rows' nodes (n,)."""
+    trees, cur = grow_level_trees(xb, edges, y[None], w[None], max_depth=max_depth, min_leaf=min_leaf, mtry=mtry,
+                                  scores=None if scores is None else torch.as_tensor(scores)[None],
+                                  generator=generator, bin_cum1h=bin_cum1h)
+    tree = Tree(*(a[0] for a in trees))
+    return (tree, cur[0]) if return_assign else tree
+
+
 def assigned_predict(value, cur) -> torch.Tensor:
     """Leaf values of assigned nodes: ``value[t, cur[t, i]]`` for (T, N)
     values and (T, n) node ids."""
@@ -503,6 +517,11 @@ def tree_assign(trees: Tree, x, depth: int) -> torch.Tensor:
         nxt = torch.where(xv <= trees.thr.gather(1, cur).to(x.dtype), left.gather(1, cur), right.gather(1, cur))
         cur = torch.where(go, nxt, cur)
     return cur
+
+
+def tree_predict(tree: Tree, x, depth: int) -> torch.Tensor:
+    """Route (m, p) points through one tree ((N,) arrays): its values, (m,)."""
+    return assigned_predict(tree.value[None], tree_assign(Tree(*(a[None] for a in tree)), x, depth))[0]
 
 
 def forest_predict(trees: Tree, x, depth: int, weights=None, tree_chunk: int = 64,

@@ -1,7 +1,8 @@
+from .logging import banner, log, run_log
 from .precision import highest_precision
 from .timing import PhaseTimer, trace
 
-__all__ = ["PhaseTimer", "highest_precision", "resolve_device", "trace"]
+__all__ = ["PhaseTimer", "banner", "highest_precision", "log", "resolve_device", "run_log", "trace"]
 
 
 def resolve_device(device):

@@ -3,7 +3,7 @@ on a Nystrom model fitted on the card, whose float64 tail runs there), K2
 (tree grower, one tree and a 50-tree cycle per launch; one bin table or one
 per chain, monotone signs, rows in shared or in device memory), K3 (forest
 predictor, also on a random forest in its slot loop) and K4 (the SVM's
-coordinate sweep); and the NN letter's L-BFGS on the card against the CPU.
+coordinate sweep, theta in shared or in device memory); and the NN letter's L-BFGS on the card against the CPU.
 
 These tests need a CUDA device and nvcc; they skip without them.  They import
 nothing of JAX, so they also run where JAX is not installed:
@@ -530,13 +530,63 @@ def test_k4_wrapper_checks_inputs(cuda):
         ttsvm.svm_sweep_cuda(q, ys.double(), w, diag)
     with pytest.raises(ValueError, match="shapes"):
         ttsvm.svm_sweep_cuda(q[:, :32], ys, w, diag)
-    # one row beyond the kernel's shared memory (expanded views: the wrapper
-    # refuses them before it copies anything)
-    big = ttsvm.max_rows(torch.float32) + 1
-    row = torch.zeros((1, 1), device=cuda).expand(1, big)
-    with pytest.raises(ValueError, match="exceed"):
-        ttsvm.svm_sweep_cuda(torch.zeros((1, 1, 1), device=cuda).expand(1, big, big), row, row, row)
+    # one row beyond the shared layout's rows, and beyond the device-memory
+    # layout's (expanded views: the wrapper refuses them before it copies
+    # anything)
+    for layout, big in (("shared", ttsvm.max_rows(torch.float32) + 1),
+                        ("global", ttsvm.max_rows_global(torch.float32) + 1),
+                        ("auto", ttsvm.max_rows_global(torch.float32) + 1)):
+        row = torch.zeros((1, 1), device=cuda).expand(1, big)
+        with pytest.raises(ValueError, match="exceed"):
+            ttsvm.svm_sweep_cuda(torch.zeros((1, 1, 1), device=cuda).expand(1, big, big), row, row, row,
+                                 theta=layout)
+    with pytest.raises(ValueError, match="theta must be"):
+        ttsvm.svm_sweep_cuda(q, ys, w, diag, theta="registers")
     assert ttsvm.svm_sweep(q, ys, w, diag, epochs=3)[0].device.type == "cuda"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_plain_sweep_graph_equals_eager(cuda, dtype):
+    """The plain sweep replayed from one captured sweep (``graph=True``)
+    gives the eager plain sweep's theta and multiplier bit for bit."""
+    q, ys, w, diag = _svm_lanes(dtype, cuda, lanes=3, n=200)
+    eager = ttsvm.svm_sweep_plain(q, ys, w, diag, epochs=6)
+    graphed = ttsvm.svm_sweep_plain(q, ys, w, diag, epochs=6, graph=True)
+    for a, b in zip(eager, graphed):
+        assert torch.equal(a, b)
+    assert bool((eager[0] != 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_k4_global_theta_bit_identical_to_shared(cuda, dtype):
+    """At the CV shape (20 lanes x 813 stations, 120 sweeps) theta in device
+    memory gives the shared layout's theta and multiplier bit for bit: only
+    theta's address changes."""
+    q, ys, w, diag = _svm_lanes(dtype, cuda, lanes=20, n=813)
+    before = ttsvm.LAUNCHES["svm_sweep"]
+    shared = ttsvm.svm_sweep_cuda(q, ys, w, diag, theta="shared")
+    glob = ttsvm.svm_sweep_cuda(q, ys, w, diag, theta="global")
+    auto = ttsvm.svm_sweep_cuda(q, ys, w, diag)
+    assert ttsvm.LAUNCHES["svm_sweep"] - before == 3
+    name = str(dtype).replace("torch.", "")
+    assert ttsvm.LAUNCH_LOG[-3:] == [(20, 813, name, "shared"), (20, 813, name, "global"), (20, 813, name, "shared")]
+    for a, b, c in zip(shared, glob, auto):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-9)], ids=["float32", "float64"])
+def test_k4_past_shared_memory_matches_plain(cuda, dtype, tol):
+    """Past the shared layout's rows (and a ragged last chunk) "auto" puts
+    theta in device memory, and K4 agrees with the plain sweep, 2 sweeps."""
+    n = ttsvm.max_rows(dtype) + 100
+    q, ys, w, diag = _svm_lanes(dtype, cuda, lanes=1, n=n)
+    theta, lam = ttsvm.svm_sweep_cuda(q, ys, w, diag, epochs=2)
+    assert ttsvm.LAUNCH_LOG[-1] == (1, n, str(dtype).replace("torch.", ""), "global")
+    with pytest.raises(ValueError, match="exceed"):
+        ttsvm.svm_sweep_cuda(q, ys, w, diag, epochs=2, theta="shared")
+    ptheta, plam = ttsvm.svm_sweep_plain(q, ys, w, diag, epochs=2)
+    assert float((theta - ptheta).abs().max()) <= tol and float((lam - plam).abs().max()) <= tol
+    assert bool((theta != 0).any()) and bool((theta[w == 0] == 0).all())
 
 
 def test_k3_on_a_random_forest_slot_loop(cuda):

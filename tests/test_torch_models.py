@@ -6,6 +6,7 @@ stack at downsample 48; both packages get the same numpy arrays.
 """
 import ast
 import importlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -242,6 +243,69 @@ def test_port_never_imports_jax(path):
         for m in mods:
             top = m.split(".")[0]
             assert top not in ("jax", "jaxlib", "optax", "machisplin_tpu", "tests"), f"{path} imports {m}"
+
+
+# JAX modules whose counterpart in the port has another name: the Pallas
+# kernels' wrappers and the CUDA kernels' (K1-K3)
+COUNTERPART_MODULES = {
+    "machisplin_tpu.ops.pallas_tps": "machisplin_tpu_torch.ops.tps_grid",
+    "machisplin_tpu.ops.pallas_grow": "machisplin_tpu_torch.ops.tree_grow",
+    "machisplin_tpu.ops.pallas_forest": "machisplin_tpu_torch.ops.forest",
+}
+# the JAX package's public names with no counterpart of that name, each with its reason
+JAX_ONLY = {
+    "machisplin_tpu.models.trees.grow_bestfirst_tree":
+        "the serial best-first grower; the port grows on K2's cumulative formulation "
+        "(trees.grow_bestfirst_trees_cumshared, ops/tree_grow.py)",
+    "machisplin_tpu.models.trees.build_path_matrices":
+        "the TPU's path-matrix forest predictor; the port predicts forests with K3 (ops/forest.py)",
+    "machisplin_tpu.models.trees.bestfirst_forest_predict_mxu":
+        "the TPU's path-matrix forest predictor; the port predicts forests with K3 (ops/forest.py)",
+    "machisplin_tpu.ops.pallas_tps.tps_grid_pallas": "K1's Pallas call; the port's K1 wrapper is ops/tps_grid.tps_grid",
+    "machisplin_tpu.ops.pallas_grow.gbm_tree_update_ref":
+        "K2's jnp twin; the port's plain version is ops/tree_grow.gbm_tree_update_plain",
+    "machisplin_tpu.utils.enable_compile_cache":
+        "JAX's persistent compile cache; the port's kernels are nvcc builds that kernels/build.py keeps by hash",
+    "machisplin_tpu.utils.cache": "the module of enable_compile_cache (above)",
+}
+
+
+def _jax_modules():
+    import pkgutil
+
+    import machisplin_tpu
+
+    return sorted(m.name for m in pkgutil.walk_packages(machisplin_tpu.__path__, "machisplin_tpu."))
+
+
+def test_every_jax_public_name_has_a_counterpart():
+    """Every module of the JAX package has its counterpart module in the
+    port (or stands in JAX_ONLY), and every name of a JAX module's
+    ``__all__`` exists in the counterpart, is in its ``__all__`` where it
+    has one, or stands in JAX_ONLY with its reason."""
+    missing, checked = [], 0
+    for name in _jax_modules():
+        port_name = COUNTERPART_MODULES.get(name, "machisplin_tpu_torch" + name[len("machisplin_tpu"):])
+        if importlib.util.find_spec(port_name) is None:
+            if name not in JAX_ONLY:
+                missing.append(f"module {name}")
+            continue
+        public = getattr(importlib.import_module(name), "__all__", None)
+        if public is None:
+            continue
+        port = importlib.import_module(port_name)
+        for attr in public:
+            checked += 1
+            if f"{name}.{attr}" in JAX_ONLY:
+                continue
+            if not hasattr(port, attr) or attr not in getattr(port, "__all__", [attr]):
+                missing.append(f"{name}.{attr}")
+    assert not missing, missing
+    assert checked > 100
+    # every JAX_ONLY entry names something public in the JAX package
+    for key in JAX_ONLY:
+        mod, _, attr = key.rpartition(".")
+        assert key in _jax_modules() or attr in getattr(importlib.import_module(mod), "__all__", []), key
 
 
 def test_port_imports_with_jax_blocked():

@@ -141,6 +141,38 @@ def _compare_forest(js, ts, x, y, w, counts):
     return np.asarray(agree), max(gaps, default=0.0)
 
 
+def test_grow_level_tree_and_tree_predict_match_jax():
+    """The JAX package's one-tree names, ``grow_level_tree`` (its key's node
+    scores injected) and ``tree_predict``, against the port's counterparts
+    over ``grow_level_trees`` and ``tree_assign``: the same tree (or a
+    near-tie parting) and, where the same, the same predictions."""
+    x, y = _data(seed=4)
+    n, p = x.shape
+    w = np.random.default_rng(4).integers(0, 3, n).astype(np.float64)
+    key = jax.random.PRNGKey(8)
+    jedges = jtrees.make_bins(jnp.asarray(x), NB)
+    jxb = jtrees.bin_data(jnp.asarray(x), jedges)
+    grow = jax.jit(jtrees.grow_level_tree, static_argnames=("max_depth", "min_leaf", "mtry"))   # eager: ~20 s
+    jt = grow(key, jxb, jedges, jnp.asarray(y[:, 0]), jnp.asarray(w), max_depth=DEPTH, min_leaf=MIN_LEAF, mtry=2)
+    levels, k = [], key
+    for level in range(DEPTH):              # grow_level_tree's draws (trees.py:283-285)
+        k, sub = jax.random.split(k)
+        levels.append(np.asarray(jax.random.uniform(sub, (2**level, p))))
+    tt, cur = ttrees.grow_level_tree(torch.as_tensor(np.array(jxb)), torch.as_tensor(np.array(jedges)),
+                                     torch.as_tensor(y[:, 0]), torch.as_tensor(w), max_depth=DEPTH,
+                                     min_leaf=MIN_LEAF, mtry=2, scores=np.concatenate(levels), return_assign=True)
+    assert tt.feat.shape == (2 ** (DEPTH + 1) - 1,) and cur.shape == (n,)
+    assert int(tt.internal.sum()) >= 3
+    gap = tree_gap(jt, tt, np.asarray(jxb), np.asarray(jedges), y[:, 0], w)
+    assert gap is None, f"the trees part at a gain gap of {gap}"
+    q = x * 1.01
+    want = np.asarray(jtrees.tree_predict(jt, jnp.asarray(q), DEPTH))
+    got = ttrees.tree_predict(tt, torch.as_tensor(q), DEPTH).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=RF_TOL * np.ptp(y[:, 0]))
+    np.testing.assert_array_equal(ttrees.tree_predict(tt, torch.as_tensor(x), DEPTH).numpy(),
+                                  tt.value[cur].numpy())
+
+
 @pytest.fixture(scope="module")
 def rf_fits():
     """One weighted forest per package, from the same draws."""

@@ -7,6 +7,8 @@ the same ones from the same keys and injects them into the port.  Data are
 made from numpy seeds.
 """
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -103,7 +105,58 @@ def test_sweep_refuses_what_the_kernel_cannot_take():
         svm_sweep.svm_sweep_cuda(q, v, v, v)
     with pytest.raises(TypeError, match="float32 or float64"):
         svm_sweep.svm_sweep_cuda(q.half(), v.half(), v.half(), v.half())
+    with pytest.raises(ValueError, match="theta must be"):
+        svm_sweep.svm_sweep_cuda(q, v, v, v, theta="registers")
+    # the rows the shared layout takes (theta in the block's shared memory)
     assert svm_sweep.max_rows(torch.float64) == 8000 and svm_sweep.max_rows(torch.float32) == 21152
+
+
+def _kernel_constants() -> dict:
+    """The block's shape and shared memory, csrc/svm_sweep.cu's constexprs."""
+    src = (Path(svm_sweep.__file__).resolve().parent.parent / "csrc" / "svm_sweep.cu").read_text()
+    consts = {}
+    for name in ("THREADS", "CH", "UPD", "ROW_BYTES", "SMEM_LIMIT"):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        consts[name] = eval(expr, {}, dict(consts))      # e.g. UPD = THREADS / 32 - 1
+    return consts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_max_rows_by_the_kernels_shared_memory(dtype):
+    """max_rows and max_rows_global are the largest n for which the kernel's
+    smem_bytes<T, GLOBAL_THETA>(n) (two Stages, the row buffers, and per
+    chunk of 32 rows a mask word and, in the shared layout, 32 values of
+    theta) fits SMEM_LIMIT, with the constants read from the source."""
+    c = _kernel_constants()
+    size = torch.finfo(dtype).bits // 8
+    coord = -(-8 * size // 16) * 16                                       # Coord<T>, __align__(16)
+    stage = c["CH"] * coord + size * (2 * c["CH"] * c["CH"] + c["UPD"] * c["CH"])
+    fixed = 2 * stage + c["UPD"] * c["ROW_BYTES"]
+
+    def smem(n, global_theta):
+        return fixed + ((0 if global_theta else c["CH"] * size) + 4) * -(-n // c["CH"])
+
+    for global_theta, limit in ((False, svm_sweep.max_rows(dtype)), (True, svm_sweep.max_rows_global(dtype))):
+        assert smem(limit, global_theta) <= c["SMEM_LIMIT"] < smem(limit + 1, global_theta)
+    assert svm_sweep.max_rows_global(dtype) > 500_000
+    assert svm_sweep.max_rows_global(dtype) == (698_368 if dtype == torch.float32 else 520_192)
+
+
+def test_svm_fit_past_the_old_float64_rows_matches_jax():
+    """At 8,200 stations in float64, past the 8,000 rows K4 once took in
+    shared memory, the port's fit (the plain sweep on the CPU) is the JAX
+    package's: sigma given, so no draw enters; 2 sweeps."""
+    n, sigma = 8200, 0.7
+    x, y = _data(n=n, seed=11)
+    js = jsvm.fit(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(y[:, 0]), sigma=sigma, epochs=2)
+    ts = tsvm.fit(torch.as_tensor(x), torch.as_tensor(y[:, 0]), sigma=sigma, epochs=2)
+    assert ts.theta.dtype == torch.float64 and ts.theta.shape == (n,)
+    assert int((ts.theta != 0).sum()) > n // 10
+    np.testing.assert_allclose(ts.theta.numpy(), np.asarray(js.theta), rtol=0, atol=SVM_TOL)
+    span = np.ptp(y[:, 0])
+    q = x[::41] * 1.02
+    want = np.asarray(jsvm.predict(js, jnp.asarray(q)))
+    assert np.abs(tsvm.predict(ts, torch.as_tensor(q)).numpy() - want).max() <= SVM_TOL * span
 
 
 @pytest.mark.parametrize("invert_threshold", [4000, 50])     # 50: train on one fold (V73:227-232)

@@ -11,10 +11,13 @@ R = 2; K3: W = 2 words, R = 2) and the innermost loop (a backward branch and
 its target) that holds the pair's marker instruction: FMNMX for K1, one a
 (cell, knot) pair; PRMT for K3, two a (cell, tree) pair.  For K4 (float32)
 the "pair" is a coordinate step and the loop is the one densest in FMNMX,
-four a step: the chain warp's loop over a chunk's steps.  Prints one JSON
-line: the loop's instructions, pairs an iteration, instructions a pair and
-each opcode's count a pair.  Compiling needs nvcc and cuobjdump; ``--sass``
-needs neither.
+four a step: the chain warp's loop over a chunk's steps, in both instances,
+theta in shared memory ("shared") and in device memory ("global"), each with
+its count of non-coherent global loads (LDG .CONSTANT, which the global
+layout must not have: the updaters read theta after the chain warp wrote
+it).  Prints one JSON line: the loop's instructions, pairs an iteration,
+instructions a pair and each opcode's count a pair (for K4, per layout).
+Compiling needs nvcc and cuobjdump; ``--sass`` needs neither.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {
     "k1": ("tps_grid", "tps_grid_kernelILi2E", "FMNMX", 1),
     "k3": ("forest_predict", "forest_kernelILi2ELi2E", "PRMT", 2),
-    "k4": ("svm_sweep", "svm_sweep_kernelIfE", "FMNMX", 4),
+    "k4": ("svm_sweep", "svm_sweep_kernelIfLb0EE", "FMNMX", 4),
 }
+# K4's instances (float32) by where a lane's theta lives
+K4_LAYOUTS = {"shared": "svm_sweep_kernelIfLb0EE", "global": "svm_sweep_kernelIfLb1EE"}
 _INS = re.compile(r"/\*([0-9a-f]{4,6})\*/\s+(.*?)\s*;")
 
 
@@ -50,10 +55,21 @@ def _sass(src: str, defines: list) -> str:
     return subprocess.run([cuobjdump, "-sass", obj], check=True, capture_output=True, text=True).stdout
 
 
+def _function(sass: str, instance: str) -> str:
+    return next(f for f in re.split(r"\n\s*Function : ", sass)[1:] if instance in f.split("\n", 1)[0])
+
+
+def noncoherent_loads(sass: str, instance: str) -> int:
+    """Global loads of ``instance`` through the non-coherent path (LDG with
+    .CONSTANT: ld.global.nc, __ldg)."""
+    return sum(1 for _, op in _INS.findall(_function(sass, instance))
+               if re.match(r"^(@!?U?P\w+\s+)?LDG\.\S*CONSTANT", op))
+
+
 def loop_counts(sass: str, instance: str, marker: str, per_pair: int, densest: bool = False) -> dict:
     """The innermost loop of ``instance`` that holds ``marker`` (with
     ``densest``, the loop densest in it): its size and its opcodes a pair."""
-    text = next(f for f in re.split(r"\n\s*Function : ", sass)[1:] if instance in f.split("\n", 1)[0])
+    text = _function(sass, instance)
     ins = [(int(a, 16), op) for a, op in _INS.findall(text)]
     ops = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0] for _, op in ins]
     first = next(k for k, op in enumerate(ops) if op == marker)
@@ -72,6 +88,14 @@ def loop_counts(sass: str, instance: str, marker: str, per_pair: int, densest: b
             "opcodes_per_pair": {k: v / pairs for k, v in body.most_common()}}
 
 
+def k4_layouts(sass: str) -> dict:
+    """K4's chain loop and non-coherent loads in each layout's instance."""
+    _, _, marker, per_step = KERNELS["k4"]
+    return {layout: {**loop_counts(sass, inst, marker, per_step, densest=True),
+                     "noncoherent_loads": noncoherent_loads(sass, inst)}
+            for layout, inst in K4_LAYOUTS.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
@@ -82,8 +106,8 @@ def main() -> int:
     name, instance, marker, per_pair = KERNELS[args.kernel]
     src = args.src or os.path.join(ROOT, "machisplin_tpu_torch", "csrc", f"{name}.cu")
     sass = open(args.sass).read() if args.sass else _sass(src, args.defines)
-    res = {"kernel": args.kernel, "source": args.sass or src, "defines": args.defines,
-           **loop_counts(sass, instance, marker, per_pair, densest=args.kernel == "k4")}
+    counts = k4_layouts(sass) if args.kernel == "k4" else loop_counts(sass, instance, marker, per_pair)
+    res = {"kernel": args.kernel, "source": args.sass or src, "defines": args.defines, **counts}
     print(json.dumps(res), flush=True)
     return 0
 
