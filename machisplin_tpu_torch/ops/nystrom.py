@@ -33,11 +33,13 @@ lambda and coefficients broadcast; the fitted pass splits by chunks too.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..parallel.sharded import broadcast_tensor, gather_rows, rank_world
 from ..utils import resolve_device
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, span
 from .tps import TPSModel, _pairwise_r2, _phi
 
 __all__ = ["select_landmarks", "nystrom_tps_fit"]
@@ -189,13 +191,13 @@ def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
     response on ``logspace(-10, 6, ngrid)`` when None.  ``landmarks`` (m, 2)
     in raw coordinates injects the centres; else ``select_landmarks`` draws
     m of them from ``generator``.  The fit runs on ``device``: by default the
-    device of ``coords`` when it is a tensor, else the GPU.  ``timer``
-    collects the seconds of its steps ("landmarks", "stream_stats",
-    "f64_tail", "gcv_coef", "fitted"), each synchronised on a GPU.
+    device of ``coords`` when it is a tensor, else the GPU.  Its steps
+    ("landmarks", "stream_stats", "f64_tail", "gcv_coef", "fitted") are
+    spans ``nystrom.<step>``; a ``timer`` also collects their seconds, each
+    step then synchronised on a GPU.
     ``mesh``: every rank calls with the same inputs; the two streamed passes
     split over the stations by whole chunks and every rank returns the
     unsharded model."""
-    timer = timer or PhaseTimer()
     if device is None:
         device = coords.device if isinstance(coords, torch.Tensor) else "cuda"
     dev = resolve_device(device)
@@ -209,21 +211,21 @@ def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
     cmin = coords.amin(0)
     crange = (coords.amax(0) - cmin).clamp_min(1e-30)
     xs = (coords - cmin) / crange
-    with timer.phase("landmarks"):
+    with _step("landmarks", timer):
         if landmarks is None:
             z = select_landmarks(xs, m, generator=generator)
         else:
             z = (torch.as_tensor(landmarks, device=dev).to(dtype) - cmin) / crange
-    with timer.phase("stream_stats"):
+    with _step("stream_stats", timer):
         kzz = _phi(_pairwise_r2(z, z))
         g, bty, yy = _stream_stats(xs, ycols, z, chunk, mesh)
-    with timer.phase("f64_tail"):
+    with _step("f64_tail", timer):
         evals, u, uu, r, scale = (a.to(dtype) for a in _whitened_eigh(g, bty, kzz))
 
-    with timer.phase("gcv_coef"):
+    with _step("gcv_coef", timer):
         lam_sel, gcv_min, s, c, d = _gcv_and_coef(evals, u, uu, r, scale, yy, n, lam, ngrid)
         lam_sel, gcv_min, s, c, d = (broadcast_tensor(a, mesh) for a in (lam_sel, gcv_min, s, c, d))
-    with timer.phase("fitted"):
+    with _step("fitted", timer):
         fitted = _stream_fitted(xs, z, d, c, chunk, mesh)
     residuals = ycols - fitted
     eff_df = s.sum(0)
@@ -234,6 +236,13 @@ def nystrom_tps_fit(coords, y, landmarks=None, m: int = 2048, lam=None,
         knots=z, c=c, d=d, shift=cmin, scale=crange, lam=lam_sel, gcv=gcv_min,
         fitted=fitted, residuals=residuals, eff_df=eff_df,
     )
+
+
+@contextlib.contextmanager
+def _step(name: str, timer: PhaseTimer | None):
+    """Span ``nystrom.<name>``, and the phase ``name`` of ``timer`` if any."""
+    with span("nystrom." + name), (timer.phase(name) if timer is not None else contextlib.nullcontext()):
+        yield
 
 
 def _gcv_and_coef(evals, u, uu, r, scale, yy, n: int, lam, ngrid: int):

@@ -31,6 +31,7 @@ import torch
 
 from ..grid import GridSpec
 from ..utils import resolve_device
+from ..utils.timing import span
 
 log = logging.getLogger("machisplin_tpu_torch.tps")
 
@@ -104,7 +105,16 @@ def tps_factor(coords, mask=None) -> TPSFactor:
 
     coords: (n, 2) or (T, n, 2) raw coordinates (e.g. LONG, LAT).
     mask:   optional (n,) or (T, n) 0/1; padded rows are excluded exactly.
+
+    Spans: ``tps.factor`` holding ``tps.kernel_matrix``, ``tps.qr``,
+    ``tps.eigh`` (the projection GEMMs and the eigendecomposition) and
+    ``tps.basis``.
     """
+    with span("tps.factor"):
+        return _factor(coords, mask)
+
+
+def _factor(coords, mask) -> TPSFactor:
     coords = torch.as_tensor(coords)
     batched = coords.ndim == 3
     if not batched:
@@ -120,27 +130,31 @@ def tps_factor(coords, mask=None) -> TPSFactor:
     n_masked = n - n_active
     on = mask[..., None] > 0
 
-    big = torch.finfo(dtype).max
-    cmin = torch.where(on, coords, big).amin(dim=1)
-    cmax = torch.where(on, coords, -big).amax(dim=1)
-    scale = torch.where(cmax > cmin, cmax - cmin, torch.ones((), dtype=dtype, device=dev))
-    x = (coords - cmin[:, None, :]) / scale[:, None, :]
-    x = torch.where(on, x, torch.full((), 0.5, dtype=dtype, device=dev))
+    with span("tps.kernel_matrix"):
+        big = torch.finfo(dtype).max
+        cmin = torch.where(on, coords, big).amin(dim=1)
+        cmax = torch.where(on, coords, -big).amax(dim=1)
+        scale = torch.where(cmax > cmin, cmax - cmin, torch.ones((), dtype=dtype, device=dev))
+        x = (coords - cmin[:, None, :]) / scale[:, None, :]
+        x = torch.where(on, x, torch.full((), 0.5, dtype=dtype, device=dev))
 
-    k = _phi(_pairwise_r2(x, x))
-    m_out = mask[:, :, None] * mask[:, None, :]
-    kappa = 2.0 * torch.abs(k * m_out).sum(-1).amax(-1)  # Gershgorin bound
-    kappa = kappa.clamp_min(1.0)
-    k_t = k * m_out + kappa[:, None, None] * torch.diag_embed(1.0 - mask)
+        k = _phi(_pairwise_r2(x, x))
+        m_out = mask[:, :, None] * mask[:, None, :]
+        kappa = 2.0 * torch.abs(k * m_out).sum(-1).amax(-1)  # Gershgorin bound
+        kappa = kappa.clamp_min(1.0)
+        k_t = k * m_out + kappa[:, None, None] * torch.diag_embed(1.0 - mask)
 
-    t = torch.cat([mask[..., None], x * mask[..., None]], dim=-1)  # (b, n, 3)
-    q, r = torch.linalg.qr(t, mode="complete")
-    q1, q2 = q[..., :3], q[..., 3:]
-    m_proj = _mT(q2) @ k_t @ q2
-    evals, u = torch.linalg.eigh(0.5 * (m_proj + _mT(m_proj)))
-    evals = evals.clamp_min(0.0)  # c.p.d. of order 2 on this subspace
-    q2u = q2 @ u
-    bmat = _mT(q1) @ (k_t @ q2u)
+    with span("tps.qr"):
+        t = torch.cat([mask[..., None], x * mask[..., None]], dim=-1)  # (b, n, 3)
+        q, r = torch.linalg.qr(t, mode="complete")
+        q1, q2 = q[..., :3], q[..., 3:]
+    with span("tps.eigh"):
+        m_proj = _mT(q2) @ k_t @ q2
+        evals, u = torch.linalg.eigh(0.5 * (m_proj + _mT(m_proj)))
+    with span("tps.basis"):
+        evals = evals.clamp_min(0.0)  # c.p.d. of order 2 on this subspace
+        q2u = q2 @ u
+        bmat = _mT(q1) @ (k_t @ q2u)
     f = TPSFactor(
         knots=x, mask=mask, shift=cmin, scale=scale, q2u=q2u, evals=evals,
         q1=q1, rmat=r[..., :3, :3], bmat=bmat, kappa=kappa,
@@ -204,7 +218,15 @@ def tps_solve(f: TPSFactor, y, lam=None, ngrid: int = 200, refine: int = 40) -> 
 
     y: (n,) or (n, R) for a single factor; (T, n) or (T, n, R) for a batched
     one.  lam: fixed smoothing parameter(s) (fields' lambda = rho / n_active).
+
+    Spans: ``tps.solve`` holding ``tps.gcv_search`` (when lam is None) and
+    ``tps.coef``; the projection of y onto the eigenbasis is its own time.
     """
+    with span("tps.solve"):
+        return _solve(f, y, lam, ngrid, refine)
+
+
+def _solve(f: TPSFactor, y, lam, ngrid: int, refine: int) -> TPSModel:
     batched = f.mask.ndim == 2
     if not batched:
         f = TPSFactor(*(a[None] for a in f))
@@ -216,21 +238,23 @@ def tps_solve(f: TPSFactor, y, lam=None, ngrid: int = 200, refine: int = 40) -> 
     u_coef = _mT(_mT(f.q2u) @ ym)                                  # (B, R, m)
 
     if lam is None:
-        rho = _gcv_search(f, u_coef, ngrid, refine)               # (B, R)
+        with span("tps.gcv_search"):
+            rho = _gcv_search(f, u_coef, ngrid, refine)           # (B, R)
     else:
         lam_t = torch.as_tensor(lam, dtype=y.dtype, device=y.device)
         rho = (lam_t * f.n_active[:, None]).expand(ycols.shape[0], ycols.shape[2])
-    gcv = _gcv_value(f, u_coef, rho)
-    _, tr = _gcv_terms(f.evals, f.n_masked, f.kappa, u_coef, rho)
-    eff_df = f.n_active[:, None] - tr
+    with span("tps.coef"):
+        gcv = _gcv_value(f, u_coef, rho)
+        _, tr = _gcv_terms(f.evals, f.n_masked, f.kappa, u_coef, rho)
+        eff_df = f.n_active[:, None] - tr
 
-    gamma = _mT(u_coef / (f.evals[:, None, :] + rho[..., None]))  # (B, m, R)
-    c = f.q2u @ gamma                                              # (B, n, R)
-    rhs = _mT(f.q1) @ ym - f.bmat @ gamma                          # (B, 3, R)
-    d = torch.linalg.solve_triangular(f.rmat, rhs, upper=True)
-    residuals = rho[:, None, :] * c * f.mask[..., None]
-    fitted = (ym - residuals) * f.mask[..., None]
-    lam_out = rho / f.n_active[:, None]
+        gamma = _mT(u_coef / (f.evals[:, None, :] + rho[..., None]))  # (B, m, R)
+        c = f.q2u @ gamma                                              # (B, n, R)
+        rhs = _mT(f.q1) @ ym - f.bmat @ gamma                          # (B, 3, R)
+        d = torch.linalg.solve_triangular(f.rmat, rhs, upper=True)
+        residuals = rho[:, None, :] * c * f.mask[..., None]
+        fitted = (ym - residuals) * f.mask[..., None]
+        lam_out = rho / f.n_active[:, None]
 
     if single:
         c, d, fitted, residuals = c[..., 0], d[..., 0], fitted[..., 0], residuals[..., 0]
@@ -299,7 +323,9 @@ def tps_fit_auto(coords, y, lam=None, ngrid: int = 200, refine: int = 40,
     ``tps_factor(coords, mask)`` + ``tps_solve``).
 
     The fit runs on ``device``: by default the device of ``coords`` when it
-    is a tensor, else the GPU."""
+    is a tensor, else the GPU.  Span: ``tps.fit``, holding the route's own
+    (``tps.factor`` and ``tps.solve``, ``tps.host_fit``, or the Nystrom
+    fit's ``nystrom.*``)."""
     if mask is not None:
         raise ValueError(
             "tps_fit_auto fits dense rows only; use tps_factor(coords, mask) "
@@ -311,16 +337,19 @@ def tps_fit_auto(coords, y, lam=None, ngrid: int = 200, refine: int = 40,
     n = coords.shape[0]
     route, m = _auto_route(n, method, max_device_knots, landmarks)
     log.info("tps_fit_auto: %d stations -> %s%s", n, route, f" ({m} landmarks)" if m else "")
-    if route == "nystrom":
-        from .nystrom import nystrom_tps_fit
+    with span("tps.fit"):
+        if route == "nystrom":
+            from .nystrom import nystrom_tps_fit
 
-        return nystrom_tps_fit(coords, y, m=m, lam=lam, generator=generator, device=dev)
-    if route == "host":
-        from .host_tps import tps_fit_host
+            return nystrom_tps_fit(coords, y, m=m, lam=lam, generator=generator, device=dev)
+        if route == "host":
+            from .host_tps import tps_fit_host
 
-        return tps_fit_host(coords, y, lam=lam, ngrid=ngrid, refine=refine, device=dev)
-    coords = torch.as_tensor(coords, device=dev)
-    return tps_fit(coords, torch.as_tensor(y, device=dev).to(coords.dtype), lam=lam, ngrid=ngrid, refine=refine)
+            with span("tps.host_fit"):
+                return tps_fit_host(coords, y, lam=lam, ngrid=ngrid, refine=refine, device=dev)
+        coords = torch.as_tensor(coords, device=dev)
+        return tps_fit(coords, torch.as_tensor(y, device=dev).to(coords.dtype), lam=lam, ngrid=ngrid,
+                       refine=refine)
 
 
 def _predict_block(model: TPSModel, pts_scaled):
@@ -343,7 +372,9 @@ def tps_predict_grid(model: TPSModel, grid: GridSpec, block_rows: int = 256) -> 
     On a CUDA model this launches the hand-written grid kernel (K1, in
     float32); on a CPU model it runs the kernel's plain version in the
     model's dtype, streamed over ``block_rows`` rows.  Returns (H, W) or
-    (H, W, R)."""
+    (H, W, R).  Span: ``tps.surface``, holding ``k1.tables`` and
+    ``k1.launch``."""
     from .tps_grid import tps_grid
 
-    return tps_grid(model, grid, block_rows=block_rows)
+    with span("tps.surface"):
+        return tps_grid(model, grid, block_rows=block_rows)

@@ -14,7 +14,9 @@ a fitted spline at every cell centre of a grid from the same tables, which
 
 ``tps_grid`` launches the CUDA kernel (``csrc/tps_grid.cu``) for a CUDA model
 and runs ``tps_grid_plain`` for a CPU model; there is no fallback between the
-two.  ``LAUNCHES`` counts kernel launches.
+two.  ``LAUNCHES`` counts kernel launches.  Spans: ``k1.tables`` (the tables,
+with their one copy of the geometry to the host) and ``k1.launch`` (K1's
+launch loop, or the plain version).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..grid import GridSpec
+from ..utils.timing import span
 
 __all__ = ["GridTables", "grid_tables", "tps_grid", "tps_grid_cuda", "tps_grid_plain", "LAUNCHES"]
 
@@ -151,10 +154,9 @@ def tps_grid(model, grid: GridSpec, block_rows: int = 256) -> torch.Tensor:
     """Evaluate a TPSModel at every cell of ``grid``: (H, W) for a
     single-response model, (H, W, R) otherwise.  A CUDA model runs K1 in
     float32; a CPU model runs the plain version in its own dtype."""
-    if model.c.device.type == "cuda":
-        tab = grid_tables(model, grid, torch.float32)
-        out = tps_grid_cuda(tab, grid)
-    else:
-        tab = grid_tables(model, grid)
-        out = tps_grid_plain(tab, grid, block_rows)
+    on_card = model.c.device.type == "cuda"
+    with span("k1.tables"):
+        tab = grid_tables(model, grid, torch.float32 if on_card else None)
+    with span("k1.launch"):
+        out = tps_grid_cuda(tab, grid) if on_card else tps_grid_plain(tab, grid, block_rows)
     return out[0] if tab.single else out.permute(1, 2, 0)
