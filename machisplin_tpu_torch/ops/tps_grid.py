@@ -31,7 +31,7 @@ from ..utils.timing import span
 __all__ = ["GridTables", "grid_tables", "tps_grid", "tps_grid_cuda", "tps_grid_plain", "LAUNCHES"]
 
 _KNOT_UNROLL = 4  # the kernel's inner unroll: knots are padded to a multiple of it
-_MAX_RESP = 8  # responses per launch (the kernel's register accumulators)
+_MAX_RESP = 24  # responses a launch holds (csrc/tps_grid.cu's MAX_RESP: register accumulators)
 
 # kernel launches since the last reset: {"tps_grid": n}
 LAUNCHES = {"tps_grid": 0}
@@ -39,6 +39,12 @@ LAUNCHES = {"tps_grid": 0}
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _launch_slices(n_resp: int) -> list[slice]:
+    """The responses of each K1 launch: one launch up to ``_MAX_RESP``
+    responses, ceil(n_resp / _MAX_RESP) launches above, in order."""
+    return [slice(r0, min(r0 + _MAX_RESP, n_resp)) for r0 in range(0, n_resp, _MAX_RESP)]
 
 
 class GridTables(NamedTuple):
@@ -116,8 +122,8 @@ def _launcher():
 
 def tps_grid_cuda(tab: GridTables, grid: GridSpec) -> torch.Tensor:
     """Launch K1 on the current stream: (R, H, W) float32 on the tables'
-    device.  Raises on a wrong device, dtype, layout or shape, and on a
-    launch error."""
+    device, in ceil(R / 24) launches (``_launch_slices``).  Raises on a
+    wrong device, dtype, layout or shape, and on a launch error."""
     kxy, c, d = tab.kxy, tab.c, tab.d
     dev = c.device
     for name, a in (("kxy", kxy), ("c", c), ("d", d)):
@@ -137,12 +143,11 @@ def tps_grid_cuda(tab: GridTables, grid: GridSpec) -> torch.Tensor:
     fn = _launcher()
     out = torch.empty((n_resp, grid.nrows, grid.ncols), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for r0 in range(0, n_resp, _MAX_RESP):
-        r1 = min(r0 + _MAX_RESP, n_resp)
-        cs, ds, os_ = c[r0:r1], d[r0:r1], out[r0:r1]
+    for sl in _launch_slices(n_resp):
+        cs, ds, os_ = c[sl], d[sl], out[sl]
         err = fn(
             kxy.data_ptr(), cs.data_ptr(), ds.data_ptr(), os_.data_ptr(),
-            n_pad, r1 - r0, grid.nrows, grid.ncols, *tab.geo, stream,
+            n_pad, sl.stop - sl.start, grid.nrows, grid.ncols, *tab.geo, stream,
         )
         if err != 0:
             raise RuntimeError(f"tps_grid kernel launch failed: CUDA error {err}")

@@ -44,10 +44,12 @@ def _model(n_knots, n_resp, device, seed=0):
 @pytest.mark.parametrize("n_knots,n_resp,shape", [
     (50, 1, (37, 53)),        # one response, ragged last block
     (300, 2, (129, 260)),     # the main path's response count
-    (200, 9, (20, 31)),       # more responses than one launch holds
+    (200, 9, (20, 31)),       # the fewest responses of the wide block shape
     (813, 3, (64, 64)),       # every station in one model, a ragged last chunk
     (4096, 1, (24, 200)),     # the large-station path's landmark count
-    (300, 19, (20, 31)),      # BASELINE config 3's responses: 8 + 8 + 3 a call
+    (300, 19, (20, 31)),      # BASELINE config 3's responses: one launch
+    (300, 24, (21, 100)),     # the most one launch holds
+    (300, 25, (21, 100)),     # one more: two launches, 24 + 1
 ])
 def test_k1_matches_plain(cuda, n_knots, n_resp, shape):
     model = _model(n_knots, n_resp, cuda)
@@ -56,12 +58,35 @@ def test_k1_matches_plain(cuda, n_knots, n_resp, shape):
     before = ttg.LAUNCHES["tps_grid"]
     got = ttg.tps_grid_cuda(tab, g)
     torch.cuda.synchronize()
-    assert ttg.LAUNCHES["tps_grid"] - before == -(-n_resp // 8)
+    assert ttg.LAUNCHES["tps_grid"] - before == -(-n_resp // ttg._MAX_RESP)
     want = ttg.tps_grid_plain(tab, g)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-4 * scale
     out = ttps.tps_predict_grid(model, g)
     assert out.shape == (shape if n_resp == 1 else shape + (n_resp,))
+
+
+def test_k1_one_launch_equals_slices(cuda):
+    """19 responses in one launch (the wide block shape, phi once a pair)
+    give the same bits as the same tables launched as the slices 0:8, 8:16
+    and 16:19 (the 8-response block shape): every output sums its knots in
+    the same order with the same arithmetic.  The grid's rows and columns
+    are ragged for both block shapes."""
+    model = _model(300, 19, cuda, seed=3)
+    g = tgrid.GridSpec(nrows=203, ncols=700, xmin=-3.1, ymax=2.2, dx=5.3 / 700, dy=5.4 / 203)
+    tab = ttg.grid_tables(model, g, torch.float32)
+    before = ttg.LAUNCHES["tps_grid"]
+    one = ttg.tps_grid_cuda(tab, g)
+    assert ttg.LAUNCHES["tps_grid"] - before == 1
+    fn = ttg._launcher()
+    sliced = torch.full_like(one, float("nan"))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for r0, r1 in ((0, 8), (8, 16), (16, 19)):
+        cs, ds, os_ = tab.c[r0:r1], tab.d[r0:r1], sliced[r0:r1]
+        assert fn(tab.kxy.data_ptr(), cs.data_ptr(), ds.data_ptr(), os_.data_ptr(), tab.c.shape[1], r1 - r0,
+                  g.nrows, g.ncols, *tab.geo, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(one, sliced)
 
 
 @pytest.mark.parametrize("live", [37, 50])

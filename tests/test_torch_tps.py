@@ -163,6 +163,28 @@ def test_k1_log_within_two_ulp():
         assert float((np.abs(log_pos(a) - want) / ulp).max()) <= 2.0
 
 
+@pytest.mark.parametrize("n_resp", [1, 2, 8, 9, 19, 24, 25, 48, 49, 100])
+def test_k1_launch_slices(n_resp):
+    """K1's launches for R responses: one up to the cap, ceil(R / cap)
+    above, each at most the cap, covering 0..R once and in order."""
+    cap = ttg._MAX_RESP
+    got = ttg._launch_slices(n_resp)
+    assert len(got) == (1 if n_resp <= cap else -(-n_resp // cap))
+    assert all(0 < sl.stop - sl.start <= cap and sl.step is None for sl in got)
+    assert [i for sl in got for i in range(sl.start, sl.stop)] == list(range(n_resp))
+
+
+def test_k1_cap_matches_kernel_source():
+    """The wrapper's cap is the kernel's MAX_RESP, the most responses
+    ``tps_grid_launch`` takes (24: 19 bioclim variables, 12 monthly)."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(ttg.__file__), "..", "csrc", "tps_grid.cu")).read()
+    assert int(re.search(r"constexpr int MAX_RESP = (\d+);", src).group(1)) == ttg._MAX_RESP == 24
+    assert "n_resp < 1 || n_resp > MAX_RESP" in src
+
+
 def test_grid_plain_matches_pointwise_predict(rng):
     """Streaming over row blocks gives the pointwise spline at cell centres."""
     pts = rng.uniform(0, 1, size=(40, 2))

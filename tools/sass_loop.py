@@ -1,17 +1,18 @@
 """Instructions a pair in the hot loop of kernel K1, K3 or K4, read from its SASS.
 
-    python3 tools/sass_loop.py k1 [--src machisplin_tpu_torch/csrc/tps_grid.cu] [-D K1_CELLS=2]
+    python3 tools/sass_loop.py k1 [--src machisplin_tpu_torch/csrc/tps_grid.cu] [-D K1_CELLS=2] [--resp 19]
     python3 tools/sass_loop.py k3 [--src ...] [--sass file.sass]
     python3 tools/sass_loop.py k4
 
 Compiles the source with the port's nvcc flags into an object file under
 ``build/sass_loop/``, disassembles it with ``cuobjdump -sass`` (or reads a
 listing given with ``--sass``), takes the main path's template instance (K1:
-R = 2; K3: W = 2 words, R = 2) and the innermost loop (a backward branch and
-its target) that holds the pair's marker instruction: FMNMX for K1, one a
-(cell, knot) pair; PRMT for K3, two a (cell, tree) pair.  For K4 (float32)
-the "pair" is a coordinate step and the loop is the one densest in FMNMX,
-four a step: the chain warp's loop over a chunk's steps, in both instances,
+R = 2, or R with ``--resp``; K3: W = 2 words, R = 2) and the innermost loop
+(a backward branch and its target) that holds the pair's marker
+instruction: FMNMX for K1, one a (cell, knot) pair; PRMT for K3, two a
+(cell, tree) pair.  For K4 (float32) the "pair" is a coordinate step and
+the loop is the one densest in FMNMX, four a step: the chain warp's loop
+over a chunk's steps, in both instances,
 theta in shared memory ("shared") and in device memory ("global"), each with
 its count of non-coherent global loads (LDG .CONSTANT, which the global
 layout must not have: the updaters read theta after the chain warp wrote
@@ -102,12 +103,15 @@ def main() -> int:
     ap.add_argument("--src", help="the kernel's source (default: the port's)")
     ap.add_argument("-D", dest="defines", action="append", default=[], help="a macro for nvcc, e.g. K1_CELLS=2")
     ap.add_argument("--sass", help="read this cuobjdump -sass listing instead of compiling")
+    ap.add_argument("--resp", type=int, help="K1: the instance of R responses (default: the main path's, 2)")
     args = ap.parse_args()
     name, instance, marker, per_pair = KERNELS[args.kernel]
+    if args.kernel == "k1" and args.resp:
+        instance = f"tps_grid_kernelILi{args.resp}E"
     src = args.src or os.path.join(ROOT, "machisplin_tpu_torch", "csrc", f"{name}.cu")
     sass = open(args.sass).read() if args.sass else _sass(src, args.defines)
     counts = k4_layouts(sass) if args.kernel == "k4" else loop_counts(sass, instance, marker, per_pair)
-    res = {"kernel": args.kernel, "source": args.sass or src, "defines": args.defines, **counts}
+    res = {"kernel": args.kernel, "source": args.sass or src, "defines": args.defines, "instance": instance, **counts}
     print(json.dumps(res), flush=True)
     return 0
 
